@@ -2,7 +2,6 @@
 """Smoke run of glusterfs_tpu_torch on one NVIDIA card.
 
     python3 chip_smoke.py            # the whole run (one card)
-    python3 chip_smoke.py --quick    # build + small kernel checks only
     python3 chip_smoke.py --profile  # the whole run, the served phases
                                      # under torch.profiler (device share)
 
@@ -13,15 +12,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2. each of the four codec kernels against its plain PyTorch version on
    the card, byte-exact: 4+2 (all 15 decode masks), 8+4 and 16+4 at
    256 MiB of stripe data (the batching codec's largest batch), and
-   unaligned stripe counts 1, 3, 127, 129; with each kernel's median
-   time, the time of a device copy moving the same bytes, and its bound;
+   unaligned stripe counts 1, 3, 127, 129; with each kernel's time,
+   the time of a device copy moving the same bytes, and its bound;
 3. a served 4+2 disperse volume (``cpu-extensions auto``, which is the
    card, ``stripe-cache on``) through ``Graph.construct`` + ``Client``:
    64 concurrent 1 MiB writes and a 1 GiB file in 64 MiB writes, read
    back healthy and with 2 bricks down;
-4. a served systematic 4+2 volume: writes, an unaligned overwrite (the
-   parity kernel through ``encode_delta``) and reads with a data brick
-   down (the reconstruct kernel).
+4. a served systematic 4+2 volume, the same writes and an unaligned
+   overwrite (the parity kernel through ``encode_delta``), read back
+   healthy and with a data and a parity brick down (the reconstruct
+   kernel).
 
 The launch counters are set to 0 just before each served phase and read
 just after it; a kernel of the path that was never launched fails the
@@ -50,13 +50,15 @@ sys.path.insert(0, str(ROOT))
 from glusterfs_tpu_torch.ops import gf256_cuda as gc  # noqa: E402
 
 MiB = 1 << 20
-BACKEND = "auto"  # the volumes' cpu-extensions: auto is the card
-BIG_BYTES = 1 << 30  # the plain volume's large file
-SYS_BIG_BYTES = 256 * MiB  # the systematic volume's large file
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and 32-bit
-# integer/float operations per second outside the tensor cores
+SMALL_FILES = 64  # concurrent 1 MiB writes (the north-star writev)
+BIG_BYTES = 1 << 30  # the large file, written in 64 MiB writes
+# published H100 SXM HBM3 rate (NVIDIA data sheet)
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+# 32-bit bitwise ops (LOP3) per clock per SM on compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput table);
+# the peak op rate is this times the SM count times the card's maximum
+# SM clock, both read from the card
+LOP3_PER_CLK_SM = 64
 
 REPLACES = {
     "fused_encode": "glusterfs_tpu/ops/gf256_pallas.py:342",
@@ -70,29 +72,38 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median device time of ``fn()`` in ms (CUDA events, one pair per
-    call; every operand exceeds the 50 MB L2, so each call finds it cold
-    for its inputs)."""
-    for _ in range(warmup):
-        fn()
+def peak_ops_s() -> float:
+    """32-bit bitwise operations per second of card 0."""
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return LOP3_PER_CLK_SM * sms * mhz * 1e6
+
+
+def time_ms(fn, iters: int, loops: int = 3) -> float:
+    """Device time of one ``fn()`` in ms: ``iters`` calls back to back
+    between one pair of CUDA events, so the host's work before each
+    launch overlaps the previous call; the median of ``loops`` such
+    loops.  Every operand exceeds the 50 MB L2, so each call finds its
+    inputs cold."""
+    fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for _ in range(loops):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(iters):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / iters)
     return float(np.median(times))
 
 
@@ -128,7 +139,7 @@ def _case(g, name, k, r, s, rows=None, wanted=None):
             gc._bits("reconstruct", k, (tuple(rows), tuple(wanted))))
 
 
-def check(g, name, k, r, s, rows=None, wanted=None, timed=False):
+def check(g, name, k, r, s, rows=None, wanted=None, ops_s=None):
     kern, plain, x, abits = _case(g, name, k, r, s, rows, wanted)
     y, ref = kern(), plain()
     torch.cuda.synchronize()
@@ -136,19 +147,20 @@ def check(g, name, k, r, s, rows=None, wanted=None, timed=False):
         raise AssertionError(f"{name} {k}+{r} S={s} rows={rows}: kernel "
                              "disagrees with its plain version")
     err = int((y.int() - ref.int()).abs().max()) if y.numel() else 0
-    if not timed:
+    if ops_s is None:
         return None
     nbytes = x.numel() + y.numel()
     # byte-XORs the bit-matrix asks for: each output plane XORs its
-    # selected input planes (ones - 1 per row, 64 bytes each, per stripe)
+    # selected input planes (ones - 1 per row, 64 bytes each, per stripe);
+    # one LOP3 XORs three 32-bit words, so it does two of them
     ones = int(abits.sum())
     xors = max(ones - abits.shape[0], 0) * 64 * s
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-    ops_ms = xors / 4 / PEAK_OPS_S * 1e3  # four bytes per 32-bit op
+    ops_ms = xors / 4 / 2 / ops_s * 1e3
     src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
     dst = torch.empty_like(src)
     ms = time_ms(kern, 10)
-    plain_ms = time_ms(plain, 3, warmup=1)
+    plain_ms = time_ms(plain, 1)
     copy_ms = time_ms(lambda: dst.copy_(src), 10)
     return {"name": name, "config": f"{k}+{r}", "stripes": s,
             "rows": list(rows) if rows else None,
@@ -156,11 +168,13 @@ def check(g, name, k, r, s, rows=None, wanted=None, timed=False):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "gib_s": nbytes / (1 << 30) / (ms / 1e3),
             "copy_ms": copy_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}
 
 
-def phase_kernels(card: str, quick: bool) -> dict:
+def phase_kernels(card: str) -> dict:
+    ops_s = peak_ops_s()
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     configs = [(4, 2), (8, 4), (16, 4)]
@@ -173,8 +187,6 @@ def phase_kernels(card: str, quick: bool) -> dict:
                 check(g, name, k, r, s, rows, wanted)
     emit("kernels-unaligned", ok=True, stripes=[1, 3, 127, 129],
          configs=[f"{k}+{r}" for k, r in configs], kernels=list(gc.KERNELS))
-    if quick:
-        return {}
     timed = {}
     for k, r in configs:
         n = k + r
@@ -182,8 +194,9 @@ def phase_kernels(card: str, quick: bool) -> dict:
         rows = tuple(range(r, n))  # every parity row stands in
         wanted = tuple(range(r))
         for name in gc.KERNELS:
-            res = check(g, name, k, r, s, rows, wanted, timed=True)
+            res = check(g, name, k, r, s, rows, wanted, ops_s)
             res["card"] = card
+            res["peak_ops_s"] = ops_s
             emit("kernel", **res)
             if (k, r) == (4, 2):
                 timed[name] = res
@@ -218,7 +231,7 @@ async def _mount(base: Path, options: dict, fresh: bool):
         shutil.rmtree(base, ignore_errors=True)
         base.mkdir(parents=True)
     c = Client(Graph.construct(ec_volfile(base, 6, 2, options={
-        "cpu-extensions": BACKEND, "stripe-cache": "on",
+        "cpu-extensions": "auto", "stripe-cache": "on",
         "stripe-cache-window": 2000, **options})))
     await c.mount()
     return c, c.graph.top
@@ -258,20 +271,21 @@ def _spoil(base: Path, bricks) -> None:
                     f.write((~head).tobytes())
 
 
-async def _serve(base: Path, g, options: dict, small: int, big_bytes: int,
+async def _serve(base: Path, g, options: dict,
                  down: tuple[int, ...]) -> dict:
-    """Write ``small`` concurrent 1 MiB files and one large file in
-    64 MiB writes (on a systematic volume also an unaligned overwrite),
+    """Write 64 concurrent 1 MiB files and a 1 GiB file in 64 MiB
+    writes (on a systematic volume also an unaligned overwrite),
     read everything back; then spoil the ``down`` bricks, remount with
     them down and read everything again."""
     c, ec = await _mount(base, options, fresh=True)
     try:
-        files = {f"/f{i}": _payload(g, MiB) for i in range(small)}
-        big = _payload(g, big_bytes)
+        files = {f"/f{i}": _payload(g, MiB) for i in range(SMALL_FILES)}
+        big = _payload(g, BIG_BYTES)
         t0 = time.perf_counter()
         await asyncio.gather(*(c.write_file(p, d) for p, d in files.items()))
         await _write_big(c, "/big", big, 64 * MiB)
-        write = (small * MiB + len(big)) / MiB / (time.perf_counter() - t0)
+        write = (SMALL_FILES * MiB + len(big)) / MiB / (
+            time.perf_counter() - t0)
         files["/big"] = big
         if options.get("systematic") == "on":
             # unaligned overwrite inside a healthy file: the parity delta
@@ -292,7 +306,7 @@ async def _serve(base: Path, g, options: dict, small: int, big_bytes: int,
         await c.unmount()
     if not (stats["launches"] > 0 and stats["max_batch"] > 1):
         raise AssertionError(f"codec did not batch: {stats}")
-    if stats["backend"] != ("cuda" if BACKEND == "auto" else BACKEND):
+    if stats["backend"] != "cuda":
         raise AssertionError(f"volume codec is {stats['backend']}")
     _spoil(base, down)
     c, ec = await _mount(base, options, fresh=False)
@@ -310,13 +324,12 @@ async def _serve(base: Path, g, options: dict, small: int, big_bytes: int,
 
 
 async def served_plain(base: Path, g) -> dict:
-    return await _serve(base, g, {}, 64, BIG_BYTES, down=(0, 3))
+    return await _serve(base, g, {}, down=(0, 3))
 
 
 async def served_systematic(base: Path, g) -> dict:
     # a data brick and a parity brick down: reads reconstruct row 1
-    return await _serve(base, g, {"systematic": "on"}, 16, SYS_BIG_BYTES,
-                        down=(1, 5))
+    return await _serve(base, g, {"systematic": "on"}, down=(1, 5))
 
 
 def _device_share(prof, wall_s: float) -> dict:
@@ -352,15 +365,13 @@ def served(name: str, coro_fn, base: Path, g, card: str,
         res["profile"] = _device_share(prof, time.perf_counter() - t0)
     else:
         res = asyncio.run(coro_fn(base, g))
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
     launches = dict(gc.LAUNCHES)
     emit(name, ok=True, launches=launches, card=card, **res)
     return launches
 
 
 def main() -> int:
-    quick = "--quick" in sys.argv[1:]
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this run needs one card",
@@ -372,9 +383,7 @@ def main() -> int:
     emit("build", ok=True, card=card, build_s=time.perf_counter() - t0,
          torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0))
-    timed = phase_kernels(card, quick)
-    if quick:
-        return 0
+    timed = phase_kernels(card)
 
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
