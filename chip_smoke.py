@@ -7,26 +7,42 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
-1. build the CUDA kernels from ``glusterfs_tpu_torch/csrc`` and report
-   the card (``nvidia-smi``'s name and power limit) and the build time;
-2. each of the four codec kernels against its plain PyTorch version on
-   the card, byte-exact: 4+2 (all 15 decode masks), 8+4 and 16+4 at
-   256 MiB of stripe data (the batching codec's largest batch), and
-   unaligned stripe counts 1, 3, 127, 129; with each kernel's time,
+1. build the CUDA kernels from ``glusterfs_tpu_torch/csrc`` with
+   ``nvcc`` and report the card (``nvidia-smi``'s name and power limit)
+   and the build time;
+2. each of the four fused codec kernels against its plain PyTorch
+   version on the card, byte-exact: 4+2 (all 15 decode masks), 8+4 and
+   16+4 at 256 MiB of stripe data (the batching codec's largest batch),
+   and unaligned stripe counts 1, 3, 127, 129; with each kernel's time,
    the time of a device copy moving the same bytes, and its bound;
-3. a served 4+2 disperse volume (``cpu-extensions auto``, which is the
+3. the three plane-major kernels (``xor_apply``, ``xor3_apply``,
+   ``mxu_apply``) the same way: 4+2, 8+4 and 16+4 with the encode
+   matrix and a decode mask at 256 MiB of plane data, every 4+2 decode
+   mask on ``mxu_apply``, and ``encode``/``decode`` at stripe counts 1,
+   3, 127, 129; beside ``mxu_apply`` the time of ``torch._int_mm`` on
+   the already unpacked operand (the product alone, a yardstick the
+   port never calls);
+4. ``entry-plane-major``: ``encode`` then ``decode`` (2 of 6 fragments
+   lost) of a 256 MiB payload at 4+2 through each of ``xor``, ``xor3``
+   and ``mxu``;
+5. a served 4+2 disperse volume (``cpu-extensions auto``, which is the
    card, ``stripe-cache on``) through ``Graph.construct`` + ``Client``:
    64 concurrent 1 MiB writes and a 1 GiB file in 64 MiB writes, read
    back healthy and with 2 bricks down;
-4. a served systematic 4+2 volume, the same writes and an unaligned
+6. a served systematic 4+2 volume, the same writes and an unaligned
    overwrite (the parity kernel through ``encode_delta``), read back
    healthy and with a data and a parity brick down (the reconstruct
-   kernel).
+   kernel);
+7. ``served-2x(4+2)-mma``: a distributed-disperse volume, one
+   ``cluster/distribute`` over two 4+2 groups on ``cpu-extensions
+   cuda-mma`` (the tensor-core kernel), the same writes, read back
+   healthy and with 2 bricks of each group down.
 
-The launch counters are set to 0 just before each served phase and read
-just after it; a kernel of the path that was never launched fails the
-run.  The line before the last is the ``kernels`` summary, the last
-line ``{"ok": true, "device": {...}}``.
+The launch counters are set to 0 just before each path (phases 4-7)
+and read just after it; a kernel of the path that was never launched
+fails the run.  The line before the last is the ``kernels`` summary,
+then the card's name and power limit, and the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -52,19 +68,30 @@ from glusterfs_tpu_torch.ops import gf256_cuda as gc  # noqa: E402
 MiB = 1 << 20
 SMALL_FILES = 64  # concurrent 1 MiB writes (the north-star writev)
 BIG_BYTES = 1 << 30  # the large file, written in 64 MiB writes
+PLANE_BYTES = 256 * MiB  # plane data of the plane-major kernel rows
+CONFIGS = [(4, 2), (8, 4), (16, 4)]
+STRIPES = (1, 3, 127, 129)
 # published H100 SXM HBM3 rate (NVIDIA data sheet)
 PEAK_BYTES_S = 3.35e12
+# published H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
+PEAK_INT8_OPS_S = 1979e12
 # 32-bit bitwise ops (LOP3) per clock per SM on compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic instruction throughput table);
 # the peak op rate is this times the SM count times the card's maximum
 # SM clock, both read from the card
 LOP3_PER_CLK_SM = 64
+# the port's kernels are the functions of namespace gf256 in
+# csrc/gf256_kernels.cu (profiler names are demangled)
+CODEC_SYMBOLS = ("gf256::xor_apply<", "gf256::mxu_apply<")
 
 REPLACES = {
     "fused_encode": "glusterfs_tpu/ops/gf256_pallas.py:342",
     "fused_decode": "glusterfs_tpu/ops/gf256_pallas.py:378",
     "fused_parity": "glusterfs_tpu/ops/gf256_pallas.py:444",
     "fused_reconstruct": "glusterfs_tpu/ops/gf256_pallas.py:477",
+    "xor_apply": "glusterfs_tpu/ops/gf256_pallas.py:161",
+    "xor3_apply": "glusterfs_tpu/ops/gf256_pallas.py:134",
+    "mxu_apply": "glusterfs_tpu/ops/gf256_pallas.py:187",
 }
 
 
@@ -107,12 +134,47 @@ def time_ms(fn, iters: int, loops: int = 3) -> float:
     return float(np.median(times))
 
 
-# -- phase 2: kernels vs their plain versions --------------------------------
+def copy_ms(nbytes: int) -> float:
+    """A device copy moving ``nbytes`` (half read, half written)."""
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    return time_ms(lambda: dst.copy_(src), 10)
+
+
+def xor_ops_ms(abits: np.ndarray, columns: int, ops_s: float) -> float:
+    """Least time of the XORs the bit-matrix asks for: each output plane
+    XORs its selected input planes (ones - 1 per row, 64 bytes each, per
+    word column); one LOP3 XORs three 32-bit words, so it does two."""
+    xors = max(int(abits.sum()) - abits.shape[0], 0) * 64 * columns
+    return xors / 4 / 2 / ops_s * 1e3
+
+
+def timing(kern, plain, nbytes: int, ops_ms: float) -> dict:
+    """Kernel, plain version and device copy times with the bound."""
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    ms = time_ms(kern, 10)
+    return {"ms": ms, "plain_ms": time_ms(plain, 1),
+            "gib_s": nbytes / (1 << 30) / (ms / 1e3),
+            "copy_ms": copy_ms(nbytes), "bound_ms": max(bytes_ms, ops_ms),
+            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+
+
+def same(name: str, y: torch.Tensor, ref: torch.Tensor, what: str) -> int:
+    torch.cuda.synchronize()
+    if y.shape != ref.shape or not torch.equal(y, ref):
+        raise AssertionError(f"{name} {what}: kernel disagrees with its "
+                             "plain version")
+    return int((y.int() - ref.int()).abs().max()) if y.numel() else 0
+
+
+# -- phase 2: fused kernels vs their plain versions --------------------------
 
 
 def _case(g, name, k, r, s, rows=None, wanted=None):
-    """(kernel call, plain call, input, output bytes, bit-matrix) of one
-    kernel at s stripes; inputs made on the card from the generator."""
+    """(kernel call, plain call, input, bit-matrix) of one fused kernel at
+    s stripes; inputs made on the card from the generator."""
     n = k + r
     data = torch.randint(0, 256, (s * k * 512,), dtype=torch.uint8,
                          device="cuda", generator=g)
@@ -141,59 +203,37 @@ def _case(g, name, k, r, s, rows=None, wanted=None):
 
 def check(g, name, k, r, s, rows=None, wanted=None, ops_s=None):
     kern, plain, x, abits = _case(g, name, k, r, s, rows, wanted)
-    y, ref = kern(), plain()
-    torch.cuda.synchronize()
-    if y.shape != ref.shape or not torch.equal(y, ref):
-        raise AssertionError(f"{name} {k}+{r} S={s} rows={rows}: kernel "
-                             "disagrees with its plain version")
-    err = int((y.int() - ref.int()).abs().max()) if y.numel() else 0
+    y = kern()
+    err = same(name, y, plain(), f"{k}+{r} S={s} rows={rows}")
     if ops_s is None:
         return None
     nbytes = x.numel() + y.numel()
-    # byte-XORs the bit-matrix asks for: each output plane XORs its
-    # selected input planes (ones - 1 per row, 64 bytes each, per stripe);
-    # one LOP3 XORs three 32-bit words, so it does two of them
-    ones = int(abits.sum())
-    xors = max(ones - abits.shape[0], 0) * 64 * s
-    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-    ops_ms = xors / 4 / 2 / ops_s * 1e3
-    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
-    dst = torch.empty_like(src)
-    ms = time_ms(kern, 10)
-    plain_ms = time_ms(plain, 1)
-    copy_ms = time_ms(lambda: dst.copy_(src), 10)
     return {"name": name, "config": f"{k}+{r}", "stripes": s,
             "rows": list(rows) if rows else None,
             "in_bytes": x.numel(), "out_bytes": y.numel(),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "gib_s": nbytes / (1 << 30) / (ms / 1e3),
-            "copy_ms": copy_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+            "max_abs_err": err,
+            **timing(kern, plain, nbytes, xor_ops_ms(abits, s, ops_s))}
 
 
-def phase_kernels(card: str) -> dict:
-    ops_s = peak_ops_s()
+def phase_kernels(card: str, ops_s: float) -> dict:
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    configs = [(4, 2), (8, 4), (16, 4)]
-    for k, r in configs:  # unaligned stripe counts, every kernel
+    for k, r in CONFIGS:  # unaligned stripe counts, every kernel
         n = k + r
         rows = tuple(range(r, n))
         wanted = tuple(range(r))
-        for s in (1, 3, 127, 129):
-            for name in gc.KERNELS:
+        for s in STRIPES:
+            for name in gc.FUSED:
                 check(g, name, k, r, s, rows, wanted)
-    emit("kernels-unaligned", ok=True, stripes=[1, 3, 127, 129],
-         configs=[f"{k}+{r}" for k, r in configs], kernels=list(gc.KERNELS))
+    emit("kernels-unaligned", ok=True, stripes=list(STRIPES),
+         configs=[f"{k}+{r}" for k, r in CONFIGS], kernels=list(gc.FUSED))
     timed = {}
-    for k, r in configs:
+    for k, r in CONFIGS:
         n = k + r
         s = 256 * MiB // (k * 512)
         rows = tuple(range(r, n))  # every parity row stands in
         wanted = tuple(range(r))
-        for name in gc.KERNELS:
+        for name in gc.FUSED:
             res = check(g, name, k, r, s, rows, wanted, ops_s)
             res["card"] = card
             res["peak_ops_s"] = ops_s
@@ -210,11 +250,164 @@ def phase_kernels(card: str) -> dict:
             emit("kernels-4+2-masks", ok=True, masks=len(masks),
                  stripes=s)
         torch.cuda.empty_cache()
-    emit("kernels", ok=True, kernels=list(gc.KERNELS), card=card)
+    emit("kernels", ok=True, kernels=list(gc.FUSED), card=card)
     return timed
 
 
-# -- phases 3 and 4: served volumes ------------------------------------------
+# -- phase 3: plane-major kernels vs their plain versions --------------------
+
+
+def _plane_case(k: int, r: int, matrix: str):
+    """(kind, key, rows or None) of the encode matrix or a decode mask
+    (the last k fragments survive: every parity row stands in)."""
+    if matrix == "encode":
+        return "encode", (k + r,), None
+    rows = tuple(range(r, k + r))
+    return "decode", (rows,), rows
+
+
+def int_mm_ms(abits: np.ndarray, x: torch.Tensor) -> tuple[float, int]:
+    """``torch._int_mm`` of the bit-matrix with the unpacked bits of the
+    widest leading slice of ``x`` whose int32 product stays under 4 GiB:
+    the tensor-core product alone, without unpack, mod 2 or pack.
+    Returns (ms, plane-row bytes of the slice)."""
+    r, c = abits.shape
+    w = min(x.shape[1], ((1 << 32) // (4 * r * 8) - 1) // gc.TILE_W
+            * gc.TILE_W)
+    a = torch.from_numpy(np.ascontiguousarray(abits, np.int8)).cuda()
+    shifts = torch.arange(8, dtype=torch.uint8, device="cuda").view(1, 8, 1)
+    bits = ((x[:, :w].unsqueeze(1) >> shifts) & 1).view(torch.int8)
+    # cuBLASLt takes int8 B column-major: (8w, C) row-major, transposed
+    b = bits.reshape(c, 8 * w).t().contiguous().t()
+    del bits
+    ms = time_ms(lambda: torch._int_mm(a, b), 10)
+    return ms, w
+
+
+def check_plane(g, forms, k: int, r: int, matrix: str,
+                ops_s: float) -> dict:
+    """The plane-major kernels ``forms`` on one input of 256 MiB of plane
+    data, each against its plain version, and timed."""
+    kind, key, rows = _plane_case(k, r, matrix)
+    abits = gc._bits(kind, k, key)
+    c = abits.shape[1]
+    w = PLANE_BYTES // c
+    x = torch.randint(0, 256, (c, w), dtype=torch.uint8, device="cuda",
+                      generator=g)
+    out = {}
+    for f in forms:
+        def kern(f=f):
+            return gc._apply_cached(f, x, kind, k, key)
+
+        def plain_fn(f=f):
+            return gc.mxu_apply_plain(abits, x) if f == "mxu" else \
+                gc.xor_apply_plain(abits, x)
+        name = f"{f}_apply"
+        err = same(name, kern(), plain_fn(),
+                   f"{k}+{r} {matrix} rows={rows} W={w}")
+        nbytes = x.numel() + abits.shape[0] * w
+        ops_ms = (2 * abits.size * 8 * w / PEAK_INT8_OPS_S * 1e3
+                  if f == "mxu" else xor_ops_ms(abits, w // 64, ops_s))
+        res = {"name": name, "config": f"{k}+{r}", "matrix": matrix,
+               "rows": list(rows) if rows else None, "plane_w": w,
+               "in_bytes": x.numel(), "out_bytes": abits.shape[0] * w,
+               "max_abs_err": err, **timing(kern, plain_fn, nbytes, ops_ms)}
+        if f == "mxu":
+            res["product_ms"], res["product_w"] = int_mm_ms(abits, x)
+        out[f] = res
+    return out
+
+
+def phase_plane_kernels(card: str, ops_s: float) -> dict:
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    for k, r in CONFIGS:  # through the entry points at unaligned S
+        n = k + r
+        rows = tuple(range(r, n))
+        for s in STRIPES:
+            data = torch.randint(0, 256, (s * k * 512,), dtype=torch.uint8,
+                                 device="cuda", generator=g)
+            want = gc.encode_plain(data, k, n)
+            for f in gc.FORMULATIONS:
+                frags = gc.encode(data, k, n, f)
+                same(f"{f}_apply", frags, want, f"encode {k}+{r} S={s}")
+                same(f"{f}_apply", gc.decode(frags[list(rows)].contiguous(),
+                                             rows, k, f), data,
+                     f"decode {k}+{r} S={s}")
+    emit("plane-kernels-unaligned", ok=True, stripes=list(STRIPES),
+         configs=[f"{k}+{r}" for k, r in CONFIGS],
+         kernels=[f"{f}_apply" for f in gc.FORMULATIONS])
+    timed = {}
+    for k, r in CONFIGS:
+        for matrix in ("encode", "decode"):
+            res = check_plane(g, gc.FORMULATIONS, k, r, matrix, ops_s)
+            for f, row in res.items():
+                row["card"] = card
+                emit("kernel", **row)
+                if (k, r, matrix) == (4, 2, "encode"):
+                    timed[row["name"]] = row
+            torch.cuda.empty_cache()
+    # every 4+2 decode mask on the tensor-core kernel
+    k, r = 4, 2
+    masks = list(itertools.combinations(range(k + r), k))
+    x = torch.randint(0, 256, (k * 8, PLANE_BYTES // (k * 8)),
+                      dtype=torch.uint8, device="cuda", generator=g)
+    for m in masks:
+        abits = gc._bits("decode", k, (m,))
+        same("mxu_apply", gc._apply_cached("mxu", x, "decode", k, (m,)),
+             gc.mxu_apply_plain(abits, x), f"4+2 decode rows={m}")
+    emit("mxu-4+2-masks", ok=True, masks=len(masks), plane_w=x.shape[1])
+    torch.cuda.empty_cache()
+    emit("plane-kernels", ok=True,
+         kernels=[f"{f}_apply" for f in gc.FORMULATIONS], card=card)
+    return timed
+
+
+# -- phase 4: the plane-major entry points -----------------------------------
+
+
+def phase_entry(card: str) -> dict:
+    """4+2 encode then decode (fragments 0 and 3 lost) of a 256 MiB
+    payload through each plane-major formulation, after one untimed
+    round trip each (operand uploads, allocator growth); the launch
+    counters are zeroed just before the timed pass and read just
+    after."""
+    k, n, rows = 4, 6, (1, 2, 4, 5)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    data = torch.randint(0, 256, (256 * MiB,), dtype=torch.uint8,
+                         device="cuda", generator=g)
+    for f in gc.FORMULATIONS:
+        gc.decode(gc.encode(data, k, n, f)[list(rows)].contiguous(), rows,
+                  k, f)
+    torch.cuda.synchronize()
+    gc.reset_launches()
+    rates = {}
+    for f in gc.FORMULATIONS:
+        t0 = time.perf_counter()
+        frags = gc.encode(data, k, n, f)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = gc.decode(frags[list(rows)].contiguous(), rows, k, f)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not torch.equal(out, data):
+            raise AssertionError(f"entry point {f}: round trip differs")
+        rates[f] = {"encode_mib_s": 256 / (t1 - t0),
+                    "decode_mib_s": 256 / (t2 - t1)}
+        del frags, out
+    launches = dict(gc.LAUNCHES)
+    for f in gc.FORMULATIONS:
+        if launches[f"{f}_apply"] < 1:
+            raise AssertionError(f"{f}_apply was never launched")
+    emit("entry-plane-major", ok=True, config="4+2", payload_bytes=256 * MiB,
+         rows=list(rows), launches=launches, rates=rates, card=card)
+    del data
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phases 5-7: served volumes ----------------------------------------------
 
 
 def _payload(g, nbytes: int) -> bytes:
@@ -222,7 +415,9 @@ def _payload(g, nbytes: int) -> bytes:
                          device=g.device, generator=g).cpu().numpy().tobytes()
 
 
-async def _mount(base: Path, options: dict, fresh: bool):
+async def _mount(base: Path, options: dict, fresh: bool, groups: int):
+    """Mount the volume; returns the client and its disperse layers
+    (one per group)."""
     from glusterfs_tpu_torch.api.glfs import Client
     from glusterfs_tpu_torch.core.graph import Graph
     from glusterfs_tpu_torch.utils.volspec import ec_volfile
@@ -230,11 +425,13 @@ async def _mount(base: Path, options: dict, fresh: bool):
     if fresh:
         shutil.rmtree(base, ignore_errors=True)
         base.mkdir(parents=True)
-    c = Client(Graph.construct(ec_volfile(base, 6, 2, options={
+    c = Client(Graph.construct(ec_volfile(base, 6, 2, groups=groups,
+                                          options={
         "cpu-extensions": "auto", "stripe-cache": "on",
         "stripe-cache-window": 2000, **options})))
     await c.mount()
-    return c, c.graph.top
+    top = c.graph.top
+    return c, [top] if groups == 1 else list(top.children)
 
 
 async def _write_big(c, path: str, data: bytes, piece: int) -> None:
@@ -271,16 +468,24 @@ def _spoil(base: Path, bricks) -> None:
                     f.write((~head).tobytes())
 
 
-async def _serve(base: Path, g, options: dict,
-                 down: tuple[int, ...]) -> dict:
+def _since(before: dict) -> dict:
+    return {n: gc.LAUNCHES[n] - before.get(n, 0) for n in gc.KERNELS}
+
+
+async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
+                 groups: int = 1) -> dict:
     """Write 64 concurrent 1 MiB files and a 1 GiB file in 64 MiB
     writes (on a systematic volume also an unaligned overwrite),
-    read everything back; then spoil the ``down`` bricks, remount with
-    them down and read everything again."""
-    c, ec = await _mount(base, options, fresh=True)
+    read everything back; then spoil the ``down`` bricks (global
+    indices: brick i is child i % 6 of group i // 6), remount with them
+    down and read everything again."""
+    backend = options.get("cpu-extensions", "auto").replace("auto", "cuda")
+    c, ecs = await _mount(base, options, fresh=True, groups=groups)
     try:
         files = {f"/f{i}": _payload(g, MiB) for i in range(SMALL_FILES)}
         big = _payload(g, BIG_BYTES)
+        torch.cuda.synchronize()
+        at_start = dict(gc.LAUNCHES)
         t0 = time.perf_counter()
         await asyncio.gather(*(c.write_file(p, d) for p, d in files.items()))
         await _write_big(c, "/big", big, 64 * MiB)
@@ -296,31 +501,47 @@ async def _serve(base: Path, g, options: dict,
             b = bytearray(files["/f5"])
             b[777:777 + len(patch)] = patch
             files["/f5"] = bytes(b)
-            if ec.write_path["delta"] < 1:
+            if ecs[0].write_path["delta"] < 1:
                 raise AssertionError(f"no parity-delta write: "
-                                     f"{ec.write_path}")
+                                     f"{ecs[0].write_path}")
+        on_write = _since(at_start)
+        at_read = dict(gc.LAUNCHES)
         healthy = await _read_all(c, files)
-        stats = ec.codec.dump_stats()
-        write_path = dict(ec.write_path)
+        on_read = _since(at_read)
+        stats = [ec.codec.dump_stats() for ec in ecs]
+        write_path = [dict(ec.write_path) for ec in ecs]
     finally:
         await c.unmount()
-    if not (stats["launches"] > 0 and stats["max_batch"] > 1):
-        raise AssertionError(f"codec did not batch: {stats}")
-    if stats["backend"] != "cuda":
-        raise AssertionError(f"volume codec is {stats['backend']}")
+    for st in stats:
+        if not (st["launches"] > 0 and st["max_batch"] > 1):
+            raise AssertionError(f"codec did not batch: {stats}")
+        if st["backend"] != backend:
+            raise AssertionError(f"volume codec is {st['backend']}, "
+                                 f"not {backend}")
+    # which group each small file landed on (its fragments on the
+    # group's first brick)
+    placed = [sum((base / f"brick{gi * 6}" / f"f{i}").is_file()
+                  for i in range(SMALL_FILES)) for gi in range(groups)]
+    if groups > 1 and (min(placed) < 1 or sum(placed) != SMALL_FILES):
+        raise AssertionError(f"small files per group: {placed}")
     _spoil(base, down)
-    c, ec = await _mount(base, options, fresh=False)
+    c, ecs = await _mount(base, options, fresh=False, groups=groups)
     try:
         for i in down:
-            ec.set_child_up(i, False)
+            ecs[i // 6].set_child_up(i % 6, False)
+        at_degraded = dict(gc.LAUNCHES)
         degraded = await _read_all(c, files)
-        dstats = ec.codec.dump_stats()
+        on_degraded = _since(at_degraded)
+        dstats = [ec.codec.dump_stats() for ec in ecs]
     finally:
         await c.unmount()
     return {"write_mib_s": write, "healthy_read_mib_s": healthy,
             "degraded_read_mib_s": degraded, "bricks_down": list(down),
+            "groups": groups, "small_files_per_group": placed,
             "write_path": write_path, "codec": stats,
-            "degraded_codec": dstats}
+            "degraded_codec": dstats, "launches_write": on_write,
+            "launches_healthy_read": on_read,
+            "launches_degraded_read": on_degraded}
 
 
 async def served_plain(base: Path, g) -> dict:
@@ -332,17 +553,33 @@ async def served_systematic(base: Path, g) -> dict:
     return await _serve(base, g, {"systematic": "on"}, down=(1, 5))
 
 
+async def served_dist_mma(base: Path, g) -> dict:
+    """2x(4+2) on the tensor-core backend: every encode and decode of
+    both groups goes through mxu_apply, on the write and on the read."""
+    res = await _serve(base, g, {"cpu-extensions": "cuda-mma",
+                                 "systematic": "off"},
+                       down=(0, 3, 7, 10), groups=2)
+    for phase in ("launches_write", "launches_healthy_read",
+                  "launches_degraded_read"):
+        if res[phase]["mxu_apply"] < 1:
+            raise AssertionError(f"mxu_apply not launched on {phase}: "
+                                 f"{res[phase]}")
+    return res
+
+
 def _device_share(prof, wall_s: float) -> dict:
     """Device time of a profiled phase by kind, and the idle share of
     its wall time (kernels and copies of one stream do not overlap, so
-    their sum is the busy time)."""
+    their sum is the busy time).  Codec kernels are the port's own
+    (``CODEC_SYMBOLS``); the mma sandwich's transposes and fills count
+    as other."""
     ms = {"codec_kernels": 0.0, "copies": 0.0, "other": 0.0}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
         if not us:
             continue
-        kind = "codec_kernels" if "xor_apply" in e.key else \
-            "copies" if "memcpy" in e.key.lower() else "other"
+        kind = "codec_kernels" if any(s in e.key for s in CODEC_SYMBOLS) \
+            else "copies" if "memcpy" in e.key.lower() else "other"
         ms[kind] += us / 1e3
     busy = sum(ms.values())
     return {"wall_s": wall_s, "device_ms": ms,
@@ -367,23 +604,28 @@ def served(name: str, coro_fn, base: Path, g, card: str,
         res = asyncio.run(coro_fn(base, g))
         torch.cuda.synchronize()
     launches = dict(gc.LAUNCHES)
-    emit(name, ok=True, launches=launches, card=card, **res)
+    emit(name, ok=True, launches=launches, card=card,
+         wall_s=time.perf_counter() - t0, **res)
     return launches
 
 
 def main() -> int:
     profile = "--profile" in sys.argv[1:]
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this run needs one card",
               file=sys.stderr)
         return 1
     card = nvidia_smi()
     t0 = time.perf_counter()
-    gc.extension()
+    gc.library()
     emit("build", ok=True, card=card, build_s=time.perf_counter() - t0,
          torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0))
-    timed = phase_kernels(card)
+    ops_s = peak_ops_s()
+    timed = phase_kernels(card, ops_s)
+    timed.update(phase_plane_kernels(card, ops_s))
+    entry = phase_entry(card)
 
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
@@ -393,24 +635,37 @@ def main() -> int:
                        profile)
         syst = served("served-4+2-systematic", served_systematic,
                       base / "systematic", g, card, profile)
+        mma = served("served-2x(4+2)-mma", served_dist_mma, base / "dist",
+                     g, card, profile)
     finally:
         shutil.rmtree(base, ignore_errors=True)
-    path = {"fused_encode": plain, "fused_decode": plain,
-            "fused_parity": syst, "fused_reconstruct": syst}
+    path = {"fused_encode": ("served-4+2", plain),
+            "fused_decode": ("served-4+2", plain),
+            "fused_parity": ("served-4+2-systematic", syst),
+            "fused_reconstruct": ("served-4+2-systematic", syst),
+            "xor_apply": ("entry-plane-major", entry),
+            "xor3_apply": ("entry-plane-major", entry),
+            "mxu_apply": ("served-2x(4+2)-mma", mma)}
     kernels = []
     for name in gc.KERNELS:
-        launches = path[name][name]
-        if launches < 1:
-            raise AssertionError(f"{name} was never launched on its path")
+        phase, counts = path[name]
+        if counts[name] < 1:
+            raise AssertionError(f"{name} was never launched on {phase}")
         t = timed[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "glusterfs_tpu_torch/csrc/gf256_kernels.cu",
-            "replaces": REPLACES[name], "launches": launches,
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "copy_ms": t["copy_ms"], "shape": "4+2, 256 MiB of stripes"})
+        shape = "4+2, 256 MiB of stripes" if name in gc.FUSED else \
+            "4+2 encode matrix, 256 MiB of plane data"
+        row = {"name": name, "route": "cuda",
+               "source": "glusterfs_tpu_torch/csrc/gf256_kernels.cu",
+               "replaces": REPLACES[name], "launches": counts[name],
+               "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+               "copy_ms": t["copy_ms"], "path": phase, "shape": shape}
+        if name == "mxu_apply":
+            row["product_ms"] = t["product_ms"]
+            row["product_w"] = t["product_w"]
+        kernels.append(row)
+    emit("done", ok=True, total_s=time.perf_counter() - started)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -187,12 +187,15 @@ class DisperseLayer(Layer):
     OPTIONS = (
         Option("redundancy", "int", default=2, min=1, max=8),
         Option("cpu-extensions", "enum", default="auto",
-               values=("auto", "cuda", "torch", "ref"),
+               values=("auto", "cuda", "cuda-mma", "torch", "torch-mma",
+                       "ref"),
                description="codec backend (reference disperse.cpu-extensions"
                            " {none,auto,x64,sse,avx} -> auto = cuda, the "
-                           "hand-written kernels on the card; torch = "
-                           "their plain PyTorch versions on the CPU; ref "
-                           "= the NumPy oracle)"),
+                           "hand-written kernels on the card; cuda-mma = "
+                           "non-systematic encode and decode on the "
+                           "tensor-core kernel; torch, torch-mma = their "
+                           "plain PyTorch versions on the CPU; ref = the "
+                           "NumPy oracle)"),
         Option("read-policy", "enum", default="round-robin",
                values=("round-robin", "gfid-hash", "first-k")),
         Option("ec-read-mask", "str", default="",
@@ -373,8 +376,8 @@ class DisperseLayer(Layer):
             self._xorv_ok = True
 
     def _make_codec(self):
-        """The layer's batching codec; ``cpu-extensions torch`` is the
-        volume's explicit request for the CPU."""
+        """The layer's batching codec; ``cpu-extensions torch`` and
+        ``torch-mma`` are the volume's explicit request for the CPU."""
         from ..ops.batch import BatchingCodec
 
         backend = self.opts["cpu-extensions"]
@@ -382,7 +385,8 @@ class DisperseLayer(Layer):
             self.k, self.r, backend,
             window=self.opts["stripe-cache-window"] / 1e6,
             systematic=self.opts["systematic"],
-            device="cpu" if backend == "torch" else None, name=self.name)
+            device="cpu" if backend.startswith("torch") else None,
+            name=self.name)
 
     def _parse_read_mask(self) -> frozenset[int] | None:
         """ec_assign_read_mask (ec.c:717-775): parse + validate — every

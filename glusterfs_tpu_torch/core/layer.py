@@ -249,6 +249,7 @@ def register(type_name: str):
 # the type suffix); everything else resolves by convention.
 _TYPE_MODULES = {
     "cluster/disperse": "glusterfs_tpu_torch.cluster.ec",
+    "cluster/distribute": "glusterfs_tpu_torch.cluster.dht",
 }
 
 

@@ -8,9 +8,16 @@ option values become
 backend        implementation
 =============  =====================================================
 ``cuda``       the hand-written CUDA kernels of ops/gf256_cuda.py on
-               the card
-``torch``      the same wrappers on CPU tensors, i.e. the kernels'
+               the card (fused encode, decode, parity, reconstruct)
+``cuda-mma``   the counterpart of the JAX package's ``pallas-mxu``:
+               non-systematic encode and decode through the
+               tensor-core kernel (``gf256_cuda.encode/decode(...,
+               "mxu")``); systematic parity, ``encode_delta`` and
+               degraded reads stay on the fused kernels
+``torch``      the ``cuda`` wrappers on CPU tensors, i.e. the kernels'
                plain PyTorch versions; only with ``device="cpu"``
+``torch-mma``  the ``cuda-mma`` routes on CPU tensors; only with
+               ``device="cpu"``
 ``ref``        pure-NumPy bit-sliced oracle (ops/gf256.py)
 ``auto``       ``cuda``; raises when there is no card (it never falls
                back to the CPU)
@@ -31,7 +38,7 @@ import torch
 
 from . import gf256, gf256_cuda
 
-BACKENDS = ("cuda", "torch", "ref")
+BACKENDS = ("cuda", "cuda-mma", "torch", "torch-mma", "ref")
 
 # -- unified-registry scrape (core/metrics.py): which backends the
 # live codecs resolved to ------------------------------------------------
@@ -67,25 +74,26 @@ def detect(requested: str = "auto") -> str:
 
 
 def resolve_device(backend: str, device=None) -> torch.device | None:
-    """The device a backend runs on: ``ref`` none (NumPy), ``torch``
-    the CPU (and only when asked for), ``cuda`` a card (raises when
-    there is none)."""
+    """The device a backend runs on: ``ref`` none (NumPy), ``torch`` and
+    ``torch-mma`` the CPU (and only when asked for), ``cuda`` and
+    ``cuda-mma`` a card (raises when there is none)."""
     dev = None if device is None else torch.device(device)
     if backend == "ref":
         if dev is not None and dev.type != "cpu":
             raise ValueError("the ref backend runs on the host only")
         return None
-    if backend == "torch":
+    if backend.startswith("torch"):
         if dev is None or dev.type != "cpu":
-            raise ValueError("the torch backend runs the kernels' plain "
-                             "versions on the CPU: pass device='cpu'")
+            raise ValueError(f"the {backend} backend runs the kernels' "
+                             "plain versions on the CPU: pass device='cpu'")
         return dev
     dev = dev or torch.device("cuda")
     if dev.type != "cuda":
-        raise ValueError(f"the cuda backend needs a CUDA device, got {dev}")
+        raise ValueError(f"the {backend} backend needs a CUDA device, "
+                         f"got {dev}")
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the cuda backend (and auto) "
-                           "never falls back to the CPU; ask for "
+        raise RuntimeError(f"no CUDA device: the {backend} backend (like "
+                           "auto) never falls back to the CPU; ask for "
                            "backend='torch', device='cpu' explicitly")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -119,7 +127,9 @@ class Codec:
         # the card's work runs on the codec's own stream, entered by
         # whichever thread calls (the batching flush pool included)
         self._stream = torch.cuda.Stream(device=self.device) \
-            if self.backend == "cuda" else None
+            if self.backend.startswith("cuda") else None
+        # non-systematic encode/decode formulation (gf256_cuda.encode)
+        self._form = "mxu" if self.backend.endswith("-mma") else "fused"
         # systematic generator (gf256.systematic_matrix): data rows are
         # raw stripe chunks — healthy reads need no math, encode ships
         # only parity off-device, degraded reads reconstruct only the
@@ -168,8 +178,8 @@ class Codec:
         if self.backend == "ref":
             return gf256.ref_encode(data, self.k, self.n)
         with self._placed():
-            return self._to_host(gf256_cuda.fused_encode(
-                self._to_dev(data), self.k, self.n))
+            return self._to_host(gf256_cuda.encode(
+                self._to_dev(data), self.k, self.n, self._form))
 
     # -- decode ------------------------------------------------------------
 
@@ -186,8 +196,8 @@ class Codec:
         if self.backend == "ref":
             return gf256.ref_decode(frags, rows, self.k)
         with self._placed():
-            return self._to_host(gf256_cuda.fused_decode(
-                self._to_dev(frags), self.k, rows))
+            return self._to_host(gf256_cuda.decode(
+                self._to_dev(frags), rows, self.k, self._form))
 
     # -- systematic paths (disperse.systematic) ----------------------------
 

@@ -25,12 +25,12 @@ def _rand(n, seed):
 
 
 def _pair(k, r, systematic, backend="torch"):
-    dev = "cpu" if backend == "torch" else None
+    dev = "cpu" if backend.startswith("torch") else None
     return (Codec(k, r, backend, systematic=systematic, device=dev),
             JaxCodec(k, r, "ref", systematic=systematic))
 
 
-@pytest.mark.parametrize("backend", ["torch", "ref"])
+@pytest.mark.parametrize("backend", ["torch", "torch-mma", "ref"])
 @pytest.mark.parametrize("systematic", [False, True])
 @pytest.mark.parametrize("k,r", [(4, 2), (8, 4), (16, 4)])
 def test_encode_decode_match_jax_ref(k, r, systematic, backend):
@@ -46,9 +46,10 @@ def test_encode_decode_match_jax_ref(k, r, systematic, backend):
         assert np.array_equal(got, data)
 
 
+@pytest.mark.parametrize("backend", ["torch", "torch-mma"])
 @pytest.mark.parametrize("systematic", [False, True])
-def test_every_4p2_mask(systematic):
-    port, ref = _pair(K, R, systematic)
+def test_every_4p2_mask(systematic, backend):
+    port, ref = _pair(K, R, systematic, backend)
     data = _rand(3 * STRIPE, seed=5)
     frags = ref.encode(data)
     for rows in itertools.combinations(range(N), K):
@@ -95,10 +96,17 @@ def test_backends_never_pick_the_cpu_implicitly():
     with pytest.raises(ValueError):
         Codec(K, R, "cuda", device="cpu")
     with pytest.raises(ValueError):
+        Codec(K, R, "torch-mma")
+    with pytest.raises(ValueError):
+        Codec(K, R, "cuda-mma", device="cpu")
+    with pytest.raises(ValueError):
         Codec(K, R, "pallas-xor")
+    with pytest.raises(ValueError):
+        Codec(K, R, "pallas-mxu")  # the port's counterpart is cuda-mma
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError):
-            Codec(K, R, "auto")
+        for backend in ("auto", "cuda", "cuda-mma"):
+            with pytest.raises(RuntimeError):
+                Codec(K, R, backend)
 
 
 def test_batching_coalesces_encodes_and_groups_decodes():
@@ -152,3 +160,35 @@ def test_cpu_codec_counts_no_kernel_launches():
     port, _ = _pair(K, R, False)
     port.decode(port.encode(_rand(STRIPE, 9))[[0, 2, 4, 5]], [0, 2, 4, 5])
     assert sum(gf256_cuda.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("systematic", [False, True])
+def test_torch_mma_batching_and_delta(systematic):
+    """The mma backend through the batcher: coalesced encodes and
+    same-mask decodes, plus the systematic delta (on the fused parity
+    kernel's plain version, as pallas-mxu rides the fused kernels)."""
+    codec = BatchingCodec(K, R, "torch-mma", device="cpu", window=0.005,
+                          systematic=systematic)
+    ref = JaxCodec(K, R, "ref", systematic=systematic)
+    datas = [_rand(STRIPE * (i + 1), 30 + i) for i in range(4)]
+
+    async def enc():
+        return await asyncio.gather(*(codec.encode_async(d) for d in datas))
+
+    outs = asyncio.run(enc())
+    assert codec.max_batch == 4
+    rows = (1, 2, 4, 5)
+
+    async def dec():
+        return await asyncio.gather(*(codec.decode_async(o[list(rows)], rows)
+                                      for o in outs))
+
+    for d, o, g in zip(datas, outs, asyncio.run(dec())):
+        assert np.array_equal(o, ref.encode(d))
+        assert np.array_equal(g, d)
+    if systematic:
+        delta = _rand(2 * STRIPE, 40)
+        assert np.array_equal(codec.encode_delta(delta),
+                              ref.encode_delta(delta))
+    assert codec.dump_stats()["backend"] == "torch-mma"
+    codec.close()

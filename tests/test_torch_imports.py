@@ -23,18 +23,22 @@ from glusterfs_tpu_torch.core.layer import lookup_type
 from glusterfs_tpu_torch.ops.codec import Codec
 
 ec = lookup_type("cluster/disperse")
+dht = lookup_type("cluster/distribute")
 posix = lookup_type("storage/posix")
-try:
-    Codec(4, 2)
-    codec = "ran"
-except RuntimeError as e:
-    codec = "raised: " + str(e)
+codec = {}
+for backend in ("auto", "cuda-mma"):
+    try:
+        Codec(4, 2, backend)
+        codec[backend] = "ran"
+    except RuntimeError as e:
+        codec[backend] = "raised: " + str(e)
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                 or m.startswith("jaxlib.") or m == "glusterfs_tpu"
                 or m.startswith("glusterfs_tpu."))
 print(json.dumps({"modules": mods, "leaked": leaked, "codec": codec,
                   "ec": ec.__module__ + "." + ec.__name__,
+                  "dht": dht.__module__ + "." + dht.__name__,
                   "posix": posix.__module__}))
 """
 
@@ -49,7 +53,10 @@ def test_port_imports_no_jax_and_never_runs_on_cpu_implicitly():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "glusterfs_tpu_torch.cluster.ec" in res["modules"]
     assert "glusterfs_tpu_torch.ops.gf256_cuda" in res["modules"]
+    assert "glusterfs_tpu_torch.cluster.dht" in res["modules"]
     assert res["leaked"] == []
     assert res["ec"] == "glusterfs_tpu_torch.cluster.ec.DisperseLayer"
+    assert res["dht"] == "glusterfs_tpu_torch.cluster.dht.DistributeLayer"
     assert res["posix"] == "glusterfs_tpu_torch.storage.posix"
-    assert res["codec"].startswith("raised: "), res["codec"]
+    for backend, outcome in res["codec"].items():
+        assert outcome.startswith("raised: "), (backend, outcome)
