@@ -18,7 +18,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3. the three plane-major kernels (``xor_apply``, ``xor3_apply``,
    ``mxu_apply``) the same way: 4+2, 8+4 and 16+4 with the encode
    matrix and a decode mask at 256 MiB of plane data, every 4+2 decode
-   mask on ``mxu_apply``, and ``encode``/``decode`` at stripe counts 1,
+   mask on ``mxu_apply``, ``mxu_apply`` at odd shapes (C of 1, 3, 5 and
+   16 fragments, R not a multiple of 16, random matrices) and at the
+   largest sums (all-ones at C = 128 on 0xFF planes), and
+   ``encode``/``decode`` at stripe counts 1,
    3, 127, 129; beside ``mxu_apply`` the time of ``torch._int_mm`` on
    the already unpacked operand (the product alone, a yardstick the
    port never calls);
@@ -51,6 +54,7 @@ import asyncio
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -71,6 +75,11 @@ BIG_BYTES = 1 << 30  # the large file, written in 64 MiB writes
 PLANE_BYTES = 256 * MiB  # plane data of the plane-major kernel rows
 CONFIGS = [(4, 2), (8, 4), (16, 4)]
 STRIPES = (1, 3, 127, 129)
+# mxu_apply's odd shapes: input planes (k = 1, 3, 5, 16), output planes,
+# plane-row bytes
+MXU_ODD_C = (8, 24, 40, 128)
+MXU_ODD_R = (8, 16, 24, 160)
+MXU_ODD_W = (8192, 3 * 32768)
 # published H100 SXM HBM3 rate (NVIDIA data sheet)
 PEAK_BYTES_S = 3.35e12
 # published H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
@@ -104,6 +113,29 @@ def nvidia_smi(query: str = "name,power.limit") -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
+
+
+def mxu_resources(lib: Path) -> dict | None:
+    """Registers, spill (local) bytes and stack of each ``mxu_apply<KS,
+    MB>`` instantiation in the built library, from ``cuobjdump
+    --dump-resource-usage``; None where the toolkit has no cuobjdump."""
+    tool = Path(gc._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    run = subprocess.run([str(tool), "--dump-resource-usage", str(lib)],
+                         capture_output=True, text=True, timeout=120)
+    if run.returncode:
+        return None
+    out = run.stdout.splitlines()
+    res = {}
+    for name, usage in zip(out, out[1:]):
+        m = re.search(r"mxu_applyILi(\d)ELi(\d)E", name)
+        if m and "REG:" in usage:
+            fields = dict(f.split(":", 1) for f in usage.split()
+                          if f.split(":", 1)[0] in ("REG", "STACK", "LOCAL"))
+            res[f"KS={m[1]},MB={m[2]}"] = {k.lower(): int(v)
+                                           for k, v in fields.items()}
+    return res
 
 
 def peak_ops_s() -> float:
@@ -357,10 +389,42 @@ def phase_plane_kernels(card: str, ops_s: float) -> dict:
         same("mxu_apply", gc._apply_cached("mxu", x, "decode", k, (m,)),
              gc.mxu_apply_plain(abits, x), f"4+2 decode rows={m}")
     emit("mxu-4+2-masks", ok=True, masks=len(masks), plane_w=x.shape[1])
+    del x
+    phase_mxu_odd(g)
     torch.cuda.empty_cache()
     emit("plane-kernels", ok=True,
          kernels=[f"{f}_apply" for f in gc.FORMULATIONS], card=card)
     return timed
+
+
+def phase_mxu_odd(g) -> None:
+    """``mxu_apply`` against its plain version at shapes the codec's
+    matrices do not reach: C of 1, 3, 5 and 16 fragments, R not a
+    multiple of 16, one and twelve 8 KiB tiles, random bit-matrices; then
+    every sum at its largest (an all-ones matrix at C = 128 on all-0xFF
+    planes, sum 128, and with every other row one short, sum 127)."""
+    shapes = []
+    for c, r, w in itertools.product(MXU_ODD_C, MXU_ODD_R, MXU_ODD_W):
+        abits = torch.randint(0, 2, (r, c), dtype=torch.uint8, device="cuda",
+                              generator=g).cpu().numpy()
+        x = torch.randint(0, 256, (c, w), dtype=torch.uint8, device="cuda",
+                          generator=g)
+        same("mxu_apply", gc.apply_bitmatrix(abits, x, "mxu"),
+             gc.mxu_apply_plain(abits, x), f"R={r} C={c} W={w}")
+        shapes.append([r, c, w])
+    x = torch.full((128, 3 * gc.TILE3_W), 0xFF, dtype=torch.uint8,
+                   device="cuda")
+    for odd in (False, True):
+        abits = np.ones((160, 128), dtype=np.uint8)
+        if odd:
+            abits[1::2, -1] = 0
+        y = gc.apply_bitmatrix(abits, x, "mxu")
+        same("mxu_apply", y, gc.mxu_apply_plain(abits, x),
+             f"all-ones, 0xFF planes, odd rows {odd}")
+        if int(y[1, 0]) != (0xFF if odd else 0):
+            raise AssertionError("mxu_apply: wrong parity at the largest sums")
+        shapes.append([160, 128, x.shape[1]])
+    emit("mxu-odd-shapes", ok=True, shapes=shapes)
 
 
 # -- phase 4: the plane-major entry points -----------------------------------
@@ -621,7 +685,8 @@ def main() -> int:
     gc.library()
     emit("build", ok=True, card=card, build_s=time.perf_counter() - t0,
          torch=torch.__version__, cuda=torch.version.cuda,
-         device=torch.cuda.get_device_name(0))
+         device=torch.cuda.get_device_name(0),
+         mxu_resources=mxu_resources(gc.build()))
     ops_s = peak_ops_s()
     timed = phase_kernels(card, ops_s)
     timed.update(phase_plane_kernels(card, ops_s))

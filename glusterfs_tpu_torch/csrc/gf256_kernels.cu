@@ -58,19 +58,53 @@
 // product on the tensor cores through mma.sync m16n8k32 s8.  Bound: at 256
 // MiB of plane data, 4+2 encode moves 640 MiB (0.200 ms at 3.35 TB/s)
 // and does 2*R*C*8W int8 operations (0.104 ms at 1,979e12/s); 8+4 0.200
-// vs 0.208 ms; 16+4 0.180 vs 0.347 ms, bound by operations.  Design: a
-// block keeps the bit-matrix in shared memory as int8 (R_pad, C_pad)
-// (rows padded to 16, columns to 32, with zeros) and walks column tiles
-// of 256 bytes: it stages the tile of every plane row in shared memory,
-// then each warp takes 8 byte columns at a time.  The N dimension of one
-// mma is those 8 byte columns at one bit b; the B fragment for bit b is
-// (4 staged plane bytes >> b) & 0x01010101, which is the unpack to 0/1
-// int8.  Eight mmas (b = 0..7) against the same A fragment give each
-// thread 4 whole output bytes: bit 0 of each int32 sum (at most C = 128,
-// no overflow) goes to bit b.  The bytes go through shared memory and
-// leave as 16-byte stores.  Bit order: b outer, byte column inner, per 8
-// columns (the TPU grouped b*TW + w over its whole tile; any consistent
-// order is right).  No wgmma, TMA or pipelining yet.
+// vs 0.208 ms; 16+4 0.180 vs 0.347 ms, bound by operations.
+//
+// What binds it in practice is instruction issue, not bytes: at 4+2
+// encode (R = 48, C = 32, one k-step) the kernel issues 25.2 M warp mmas,
+// and every integer instruction around each one costs more than the mma.
+// The first version spent about 13 (shift and mask per B fragment, bit 0
+// out of each accumulator and shifted into place) and ran at a third of
+// the byte bound.  At 16+4 (C = 128, four k-steps) the integer work is
+// spread over four mmas and the mma.sync issue rate binds instead.
+//
+// Design.  A block of 8 warps walks 256-byte column tiles (a persistent
+// grid sized to the resident blocks) and each warp takes 32 byte columns
+// of every tile.
+// - Staging: each tile of every plane row goes into a ring of three
+//   shared-memory slots with cp.async (16 bytes a thread, two tiles in
+//   flight while the third is multiplied), one barrier per tile.  The
+//   16-byte chunks of plane row p sit at chunk v ^ 2*((p/4)%4), so the
+//   four row quads of one B load fall on distinct banks.
+// - B fragments: a lane (g, t) reads one 32-bit word (byte columns
+//   4g..4g+3) from each of planes 4t..4t+3 and transposes the 4x4 bytes
+//   with 8 byte_perms: register i then holds the four planes of byte
+//   column 4g+i, which is the B fragment of mma i when N column g of mma
+//   i stands for byte column 4g+i.  Four mmas cover 32 byte columns, and
+//   the accumulators of lane (g, t) are then the 8 contiguous bytes
+//   8t..8t+7 of rows g and g+8: they leave as 8-byte stores, straight from
+//   registers.
+// - Bits: the B fragment for bit b is raw & (0x01010101 << b), one AND,
+//   made once per pass and shared by all MB row tiles.  The sum S of the
+//   selected bits then sits at 2^b * S, so bit b of the int32 accumulator
+//   is S mod 2, and acc |= d & (1 << b) is one LOP3 per accumulator.
+//   Bit 7's operand byte 0x80 is -128 as s8: the sum is -128 * S, and
+//   since -128 * S = 128 * S (mod 256), bit 7 is still S mod 2.  Bit 7's
+//   mma takes the accumulator of bits 0-6 as its C operand, so its low
+//   byte is the output byte with no extraction at all (bits 0-6 are not
+//   touched by a multiple of 128).  No sum overflows: |S| <= C <= 128.
+//   byte_perm moves byte 0 of each mma's accumulator to byte i of the
+//   output word.  About 5 integer instructions per mma at 4+2 (2/MB
+//   ANDs, 3.5 LOP3s, 0.4 byte_perms, the loads), 2 at 16+4.
+// - A fragments: the bit-matrix is zero-padded in shared memory to
+//   (rows to a whole number of passes of MB tiles of 16, columns to 32)
+//   and held in registers (4*KS*MB of them).  When one pass covers every
+//   row (4+2, 8+4) they are loaded once for the launch; at 16+4 once per
+//   pass and column tile, for 32*KS*MB mmas.
+// Why not wgmma: its B operand comes from shared memory in the canonical
+// K-major layout, so the 0/1 unpack would be written there at 8x the
+// packed tile, and mma.sync is not yet the limit at 4+2.  Bit order: any
+// consistent one is right (the TPU grouped b*TW + w over its tile).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -190,14 +224,15 @@ cudaError_t launch_xor(const void* x, void* y, const void* masks, int64_t S,
   return cudaGetLastError();
 }
 
-// d += a . b over one m16n8k32 tile: A 16x32 s8 (row), B 32x8 s8 (col),
-// D 16x8 s32.  Fragments (PTX ISA, mma.m16n8k32 with .s8), with
+// d = a . b (+ c) over one m16n8k32 tile: A 16x32 s8 (row), B 32x8 s8
+// (col), D 16x8 s32.  Fragments (PTX ISA, mma.m16n8k32 with .s8), with
 // g = lane / 4 and t = lane % 4:
 //   a[0]: row g,   cols 4t..4t+3      a[1]: row g+8, cols 4t..4t+3
 //   a[2]: row g,   cols 16+4t..       a[3]: row g+8, cols 16+4t..
 //   b0:   rows 4t..4t+3, col g        b1:   rows 16+4t..16+4t+3, col g
 //   d[0], d[1]: row g, cols 2t, 2t+1  d[2], d[3]: row g+8, cols 2t, 2t+1
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+// (the lowest byte of a fragment register is its lowest row or column).
+__device__ __forceinline__ void mma_s8(uint32_t (&d)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
@@ -205,23 +240,58 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// KS: k-steps of 32 input planes (C_pad = 32*KS).
-template <int KS>
+// d = a . b, with a zero accumulator
+__device__ __forceinline__ void mma_s8_zero(uint32_t (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "r"(0));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr int kStages = 3;  // column tiles in the shared-memory ring
+
+// Row tiles of 16 output planes per pass (MB) for KS k-steps: the A
+// fragments of a pass (4*KS*MB registers) stay in registers.
+constexpr int mxu_max_mb(int ks) { return ks <= 2 ? 4 : 2; }
+
+// 16-byte chunk v of staged plane row p sits at chunk v ^ (2 * ((p/4)%4)),
+// so the four row quads a warp's B loads touch land on distinct banks.
+__device__ __forceinline__ int mxu_swizzle(int p, int v) {
+  return v ^ (((p >> 2) & 3) << 1);
+}
+
+// KS: k-steps of 32 input planes (C_pad = 32*KS); MB: row tiles per pass;
+// the kernel makes `passes` passes of MB row tiles over each column tile.
+template <int KS, int MB>
 __global__ void __launch_bounds__(kThreads)
     mxu_apply(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
-              const int8_t* __restrict__ abits, int64_t W, int C, int R) {
+              const int8_t* __restrict__ abits, int64_t W, int C, int R,
+              int passes) {
   constexpr int kCp = KS * 32;
-  // row strides in bytes; the 16-byte pads keep the fragment loads of a
-  // warp on distinct banks (A, Y) or at most two deep (X)
-  constexpr int kAS = kCp + 16;
-  constexpr int kXS = kMmaTile + 16;
-  constexpr int kYS = kMmaTile + 16;
-  constexpr int kVecs = kMmaTile / 16;  // 16-byte lanes per tile row
-  const int rp = (R + 15) & ~15;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* as = smem;            // rp x kAS: the bit-matrix, zero-padded
-  uint8_t* xs = as + rp * kAS;   // kCp x kXS: one tile of every plane row
-  uint8_t* ys = xs + kCp * kXS;  // rp x kYS: the tile's output bytes
+  constexpr int kAS = kCp + 16;  // bit-matrix row stride in shared memory
+  constexpr int kSlot = kCp * kMmaTile;  // bytes of one staged column tile
+  const int rp = passes * MB * 16;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* as = smem;           // rp x kAS: the bit-matrix, zero-padded
+  uint8_t* xs = as + rp * kAS;  // kStages x kCp x kMmaTile, swizzled
 
   for (int e = threadIdx.x; e < rp * kAS; e += kThreads) {
     const int r = e / kAS;
@@ -229,104 +299,213 @@ __global__ void __launch_bounds__(kThreads)
     as[e] = (r < R && c < C) ? static_cast<uint8_t>(abits[r * C + c]) : 0;
   }
   // padded planes meet zero columns of A; keep them defined all the same
-  for (int e = threadIdx.x; e < (kCp - C) * kXS; e += kThreads) {
-    xs[C * kXS + e] = 0;
+  for (int e = threadIdx.x; e < (kCp - C) * kMmaTile; e += kThreads) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) xs[s * kSlot + C * kMmaTile + e] = 0;
   }
+  __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x & 31) >> 2;
   const int t = threadIdx.x & 3;
-  const int64_t tiles = W / kMmaTile;
-  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int64_t w0 = tile * kMmaTile;
-    __syncthreads();  // the bit-matrix is in; the last tile is written out
-    for (int e = threadIdx.x; e < C * kVecs; e += kThreads) {
-      const int c = e / kVecs;
-      const int v = e - c * kVecs;
-      *reinterpret_cast<uint4*>(xs + c * kXS + v * 16) =
-          *reinterpret_cast<const uint4*>(x + c * W + w0 + v * 16);
-    }
-    __syncthreads();
 
-    for (int nt = warp; nt < kMmaTile / 8; nt += kThreads / 32) {
-      // byte i of b[ks][h]: plane 32ks + 16h + 4t + i at byte column 8nt + g
-      uint32_t b[KS][2];
+  uint32_t a[MB][KS][4];
+  auto load_a = [&](int pass) {
+#pragma unroll
+    for (int mt = 0; mt < MB; ++mt) {
+      const uint8_t* ar = as + ((pass * MB + mt) * 16 + g) * kAS + t * 4;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint8_t* p = xs + (ks * 32 + h * 16 + t * 4) * kXS + nt * 8 + g;
-          b[ks][h] = static_cast<uint32_t>(p[0]) |
-                     (static_cast<uint32_t>(p[kXS]) << 8) |
-                     (static_cast<uint32_t>(p[2 * kXS]) << 16) |
-                     (static_cast<uint32_t>(p[3 * kXS]) << 24);
-        }
+        a[mt][ks][0] = *reinterpret_cast<const uint32_t*>(ar + ks * 32);
+        a[mt][ks][1] =
+            *reinterpret_cast<const uint32_t*>(ar + 8 * kAS + ks * 32);
+        a[mt][ks][2] = *reinterpret_cast<const uint32_t*>(ar + ks * 32 + 16);
+        a[mt][ks][3] =
+            *reinterpret_cast<const uint32_t*>(ar + 8 * kAS + ks * 32 + 16);
       }
-      for (int mt = 0; mt < rp / 16; ++mt) {
-        uint32_t a[KS][4];
-        const uint8_t* ar = as + (mt * 16 + g) * kAS + t * 4;
+    }
+  };
+  load_a(0);  // for the whole launch when one pass covers every row
+
+  const int64_t tiles = W / kMmaTile;
+  int64_t next = blockIdx.x;  // the next column tile to stage
+  auto stage = [&](int slot) {
+    if (next < tiles) {
+      const uint8_t* src = x + next * kMmaTile;
+      uint8_t* dst = xs + slot * kSlot;
+      for (int e = threadIdx.x; e < C * (kMmaTile / 16); e += kThreads) {
+        const int p = e >> 4;
+        const int v = e & 15;
+        cp_async16(dst + p * kMmaTile + mxu_swizzle(p, v) * 16,
+                   src + p * W + v * 16);
+      }
+    }
+    cp_async_commit();  // an empty group keeps the count in step
+    next += gridDim.x;
+  };
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          a[ks][0] = *reinterpret_cast<const uint32_t*>(ar + ks * 32);
-          a[ks][1] = *reinterpret_cast<const uint32_t*>(ar + 8 * kAS + ks * 32);
-          a[ks][2] = *reinterpret_cast<const uint32_t*>(ar + ks * 32 + 16);
-          a[ks][3] =
-              *reinterpret_cast<const uint32_t*>(ar + 8 * kAS + ks * 32 + 16);
-        }
-        // lo: row g, bytes 2t (bits 0-7) and 2t+1 (bits 8-15); hi: row g+8
-        uint32_t lo = 0, hi = 0;
+  for (int s = 0; s < kStages - 1; ++s) stage(s);
+
+  // this warp's 32 byte columns of each tile; lane (g, t) reads the 4
+  // bytes at columns col0 + 4g .. + 3 of planes 4t..4t+3 of each quad
+  const int col0 = warp * 32;
+  const int boff =
+      mxu_swizzle(4 * t, (col0 >> 4) + (g >> 2)) * 16 + (g & 3) * 4;
+  int slot = 0;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // this tile is in; the slot staged next is free
+    stage((slot + kStages - 1) % kStages);
+
+    // b[ks][h][i]: the B register of mma i, i.e. planes 32ks + 16h +
+    // 4t .. +3 at byte column col0 + 4g + i (a 4x4 byte transpose of
+    // the four words read)
+    uint32_t b[KS][2][4];
+    const uint8_t* xt = xs + slot * kSlot + 4 * t * kMmaTile + boff;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint8_t* p = xt + (ks * 32 + h * 16) * kMmaTile;
+        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p);
+        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(p + kMmaTile);
+        const uint32_t w2 =
+            *reinterpret_cast<const uint32_t*>(p + 2 * kMmaTile);
+        const uint32_t w3 =
+            *reinterpret_cast<const uint32_t*>(p + 3 * kMmaTile);
+        const uint32_t lo01 = __byte_perm(w0, w1, 0x5140);
+        const uint32_t hi01 = __byte_perm(w0, w1, 0x7362);
+        const uint32_t lo23 = __byte_perm(w2, w3, 0x5140);
+        const uint32_t hi23 = __byte_perm(w2, w3, 0x7362);
+        b[ks][h][0] = __byte_perm(lo01, lo23, 0x5410);
+        b[ks][h][1] = __byte_perm(lo01, lo23, 0x7632);
+        b[ks][h][2] = __byte_perm(hi01, hi23, 0x5410);
+        b[ks][h][3] = __byte_perm(hi01, hi23, 0x7632);
+      }
+    }
+
+    const int64_t yc = tile * kMmaTile + col0 + 8 * t;
+    for (int pass = 0; pass < passes; ++pass) {
+      if (passes > 1) load_a(pass);
+      // out[mt]: row g bytes 8t..8t+3 and 8t+4..8t+7 of the warp's
+      // columns, then the same of row g+8
+      uint32_t out[MB][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t acc[MB][4];
 #pragma unroll
         for (int bit = 0; bit < 8; ++bit) {
-          int d[4] = {0, 0, 0, 0};
+          // bit `bit` of each plane byte, in place: the parity of the
+          // sum lands at bit `bit` of the accumulator (bit 7: see note)
+          uint32_t bm[KS][2];
 #pragma unroll
           for (int ks = 0; ks < KS; ++ks) {
-            mma_s8(d, a[ks], (b[ks][0] >> bit) & 0x01010101u,
-                   (b[ks][1] >> bit) & 0x01010101u);
+            bm[ks][0] = b[ks][0][i] & (0x01010101u << bit);
+            bm[ks][1] = b[ks][1][i] & (0x01010101u << bit);
           }
-          lo |= ((d[0] & 1u) << bit) | ((d[1] & 1u) << (bit + 8));
-          hi |= ((d[2] & 1u) << bit) | ((d[3] & 1u) << (bit + 8));
+#pragma unroll
+          for (int mt = 0; mt < MB; ++mt) {
+            uint32_t d[4];
+            if (bit < 7) {
+              mma_s8_zero(d, a[mt][0], bm[0][0], bm[0][1]);
+            } else {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) d[q] = acc[mt][q];
+              mma_s8(d, a[mt][0], bm[0][0], bm[0][1]);
+            }
+#pragma unroll
+            for (int ks = 1; ks < KS; ++ks) {
+              mma_s8(d, a[mt][ks], bm[ks][0], bm[ks][1]);
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              if (bit == 0) {
+                acc[mt][q] = d[q] & 1u;
+              } else if (bit < 7) {
+                acc[mt][q] |= d[q] & (1u << bit);
+              } else {
+                acc[mt][q] = d[q];  // byte 0 is the output byte
+              }
+            }
+          }
         }
-        const int col = nt * 8 + 2 * t;
-        *reinterpret_cast<uint16_t*>(ys + (mt * 16 + g) * kYS + col) =
-            static_cast<uint16_t>(lo);
-        *reinterpret_cast<uint16_t*>(ys + (mt * 16 + g + 8) * kYS + col) =
-            static_cast<uint16_t>(hi);
+        // byte 0 of acc goes to byte i of out
+#pragma unroll
+        for (int mt = 0; mt < MB; ++mt) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            out[mt][q] = i == 0 ? acc[mt][q]
+                         : i == 1 ? __byte_perm(out[mt][q], acc[mt][q], 0x3240)
+                         : i == 2 ? __byte_perm(out[mt][q], acc[mt][q], 0x3410)
+                                  : __byte_perm(out[mt][q], acc[mt][q], 0x4210);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MB; ++mt) {
+        const int r = (pass * MB + mt) * 16 + g;
+        if (r < R) {
+          *reinterpret_cast<uint2*>(y + r * W + yc) =
+              make_uint2(out[mt][0], out[mt][1]);
+        }
+        if (r + 8 < R) {
+          *reinterpret_cast<uint2*>(y + (r + 8) * W + yc) =
+              make_uint2(out[mt][2], out[mt][3]);
+        }
       }
     }
-    __syncthreads();
-    for (int e = threadIdx.x; e < R * kVecs; e += kThreads) {
-      const int r = e / kVecs;
-      const int v = e - r * kVecs;
-      *reinterpret_cast<uint4*>(y + r * W + w0 + v * 16) =
-          *reinterpret_cast<const uint4*>(ys + r * kYS + v * 16);
-    }
+    slot = (slot + 1) % kStages;
   }
+  cp_async_wait<0>();
 }
 
-template <int KS>
+template <int KS, int MB>
 cudaError_t launch_mxu(const void* x, void* y, const void* abits, int64_t W,
-                       int C, int R, int device, cudaStream_t stream) {
-  const int rp = (R + 15) & ~15;
-  const size_t smem = static_cast<size_t>(rp) * (KS * 32 + 16) +
-                      static_cast<size_t>(KS * 32) * (kMmaTile + 16) +
-                      static_cast<size_t>(rp) * (kMmaTile + 16);
+                       int C, int R, int passes, int device,
+                       cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(passes) * MB * 16 * (KS * 32 + 16) +
+      static_cast<size_t>(kStages) * KS * 32 * kMmaTile;
   cudaError_t err = cudaFuncSetAttribute(
-      mxu_apply<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mxu_apply<KS, MB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mxu_apply<KS>,
-                                                      kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, mxu_apply<KS, MB>, kThreads, smem);
   if (err != cudaSuccess) return err;
   const int64_t tiles = W / kMmaTile;
   const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const int64_t blocks = tiles < resident ? tiles : resident;
-  mxu_apply<KS><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  mxu_apply<KS, MB><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(x), static_cast<uint8_t*>(y),
-      static_cast<const int8_t*>(abits), W, C, R);
+      static_cast<const int8_t*>(abits), W, C, R, passes);
   return cudaGetLastError();
+}
+
+// The pass size for KS k-steps and R output planes: as few passes of at
+// most mxu_max_mb(KS) row tiles as will do, split evenly.
+template <int KS>
+cudaError_t dispatch_mxu(const void* x, void* y, const void* abits, int64_t W,
+                         int C, int R, int device, cudaStream_t stream) {
+  constexpr int kMax = mxu_max_mb(KS);
+  const int tiles = (R + 15) / 16;
+  const int passes = (tiles + kMax - 1) / kMax;
+  const int mb = (tiles + passes - 1) / passes;
+  switch (mb) {
+    case 1:
+      return launch_mxu<KS, 1>(x, y, abits, W, C, R, passes, device, stream);
+    case 2:
+      return launch_mxu<KS, 2>(x, y, abits, W, C, R, passes, device, stream);
+    case 3:
+      return launch_mxu<KS, kMax < 3 ? kMax : 3>(x, y, abits, W, C, R, passes,
+                                                 device, stream);
+    default:
+      return launch_mxu<KS, kMax>(x, y, abits, W, C, R, passes, device,
+                                  stream);
+  }
 }
 
 }  // namespace gf256
@@ -412,13 +591,13 @@ int gf256_mxu_apply(const void* x, void* y, const void* abits, int64_t W,
   const auto s = static_cast<cudaStream_t>(stream);
   switch ((C + 31) / 32) {
     case 1:
-      return gf256::launch_mxu<1>(x, y, abits, W, C, R, device, s);
+      return gf256::dispatch_mxu<1>(x, y, abits, W, C, R, device, s);
     case 2:
-      return gf256::launch_mxu<2>(x, y, abits, W, C, R, device, s);
+      return gf256::dispatch_mxu<2>(x, y, abits, W, C, R, device, s);
     case 3:
-      return gf256::launch_mxu<3>(x, y, abits, W, C, R, device, s);
+      return gf256::dispatch_mxu<3>(x, y, abits, W, C, R, device, s);
     default:
-      return gf256::launch_mxu<4>(x, y, abits, W, C, R, device, s);
+      return gf256::dispatch_mxu<4>(x, y, abits, W, C, R, device, s);
   }
 }
 

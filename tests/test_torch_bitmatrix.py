@@ -128,3 +128,33 @@ def test_cpu_calls_count_no_launches():
         gf256_cuda.decode(frags[[0, 1, 2, 5]].contiguous(), (0, 1, 2, 5), 4,
                           form)
     assert sum(gf256_cuda.LAUNCHES.values()) == 0
+
+
+def _mxu_case(case):
+    """(bit-matrix, planes) of one extreme or odd mxu shape: ``ones`` is
+    an all-ones (24, 128) matrix on all-0xFF planes, every sum 128 (bit
+    7's operand is -128 as s8); ``ones-odd`` drops the last one of every
+    other row (sum 127); ``RxC`` is a random matrix with R not a multiple
+    of 16 and C not a multiple of 32."""
+    w = 8192
+    if case.startswith("ones"):
+        abits = np.ones((24, 128), dtype=np.uint8)
+        if case == "ones-odd":
+            abits[1::2, -1] = 0
+        return abits, np.full((128, w), 0xFF, dtype=np.uint8)
+    r, c = (int(v) for v in case.split("x"))
+    rng = np.random.default_rng(r * 1000 + c)
+    return (rng.integers(0, 2, (r, c), dtype=np.uint8),
+            rng.integers(0, 256, (c, w), dtype=np.uint8))
+
+
+@pytest.mark.parametrize("case", ["ones", "ones-odd", "24x40", "8x24"])
+def test_mxu_extreme_and_odd_shapes_match_pallas(case):
+    abits, x = _mxu_case(case)
+    want = _pallas(abits, x, "mxu")
+    got = gf256_cuda.mxu_apply_plain(abits, torch.from_numpy(x)).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, gf256_cuda.xor_apply_plain(
+        abits, torch.from_numpy(x)).numpy())
+    if case.startswith("ones"):
+        assert got[1, 0] == (0xFF if case == "ones-odd" else 0)

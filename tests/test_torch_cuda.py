@@ -90,3 +90,51 @@ def test_plane_major_kernels_match_plain_versions_on_card(k, r):
     assert gf256_cuda.LAUNCHES == {**dict.fromkeys(gf256_cuda.FUSED, 0),
                                    "xor_apply": per, "xor3_apply": per,
                                    "mxu_apply": per}
+
+
+def _bits_and_planes(r, c, w, seed):
+    rng = np.random.default_rng(seed)
+    abits = rng.integers(0, 2, (r, c), dtype=np.uint8)
+    x = rng.integers(0, 256, (c, w), dtype=np.uint8)
+    return abits, torch.from_numpy(x).cuda()
+
+
+def _ones(r, odd_rows):
+    """All-ones (r, 128) bit-matrix; with ``odd_rows`` every other row
+    drops its last one, so its sums on 0xFF planes are 127, the largest
+    odd sum."""
+    abits = np.ones((r, 128), dtype=np.uint8)
+    if odd_rows:
+        abits[1::2, -1] = 0
+    return abits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 24, 40, 128])
+@pytest.mark.parametrize("r", [8, 16, 24, 160])
+def test_mxu_apply_odd_shapes_on_card(r, c):
+    """mxu_apply against its plain version, byte-exact, at k = 1, 3, 5,
+    16 input fragments (C not a multiple of 32), R not a multiple of 16,
+    and widths of one and of twelve 8 KiB tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    for w in (8192, 3 * 32768):
+        abits, x = _bits_and_planes(r, c, w, seed=1000 * r + c)
+        got = gf256_cuda.apply_bitmatrix(abits, x, "mxu")
+        assert torch.equal(got, gf256_cuda.mxu_apply_plain(abits, x)), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("odd_rows", [False, True])
+def test_mxu_apply_largest_sums_on_card(odd_rows):
+    """Every sum at its largest: an all-ones bit-matrix at C = 128 on
+    all-0xFF planes gives 128 at every bit (bit 7's operand is -128 as
+    s8), and 127 on the rows that drop a one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    abits = _ones(24, odd_rows)
+    x = torch.full((128, 8192), 0xFF, dtype=torch.uint8, device="cuda")
+    got = gf256_cuda.apply_bitmatrix(abits, x, "mxu")
+    want = gf256_cuda.mxu_apply_plain(abits, x)
+    assert torch.equal(got, want)
+    assert int(want[1, 0]) == (0xFF if odd_rows else 0)
