@@ -19,10 +19,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``mxu_apply``) the same way: 4+2, 8+4 and 16+4 with the encode
    matrix and a decode mask at 256 MiB of plane data, every 4+2 decode
    mask on ``mxu_apply``, ``mxu_apply`` at odd shapes (C of 1, 3, 5 and
-   16 fragments, R not a multiple of 16, random matrices) and at the
-   largest sums (all-ones at C = 128 on 0xFF planes), and
-   ``encode``/``decode`` at stripe counts 1,
-   3, 127, 129; beside ``mxu_apply`` the time of ``torch._int_mm`` on
+   16 fragments, R not a multiple of 16, random matrices) and at row
+   sums each side of 16, 32, 64 and 128 up to the largest (all-ones at
+   C = 128 on 0xFF planes), and ``encode``/``decode`` at stripe counts
+   1, 3, 127, 129; beside ``mxu_apply`` the time of ``torch._int_mm`` on
    the already unpacked operand (the product alone, a yardstick the
    port never calls);
 4. ``entry-plane-major``: ``encode`` then ``decode`` (2 of 6 fragments
@@ -80,6 +80,9 @@ STRIPES = (1, 3, 127, 129)
 MXU_ODD_C = (8, 24, 40, 128)
 MXU_ODD_R = (8, 16, 24, 160)
 MXU_ODD_W = (8192, 3 * 32768)
+# row sums each side of the powers of two where mxu_apply's bit pairing
+# changes, at C = 128 on 0xFF planes (128: all-ones rows)
+MXU_SUMS = (15, 16, 31, 32, 63, 64, 127, 128)
 # published H100 SXM HBM3 rate (NVIDIA data sheet)
 PEAK_BYTES_S = 3.35e12
 # published H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
@@ -401,8 +404,10 @@ def phase_mxu_odd(g) -> None:
     """``mxu_apply`` against its plain version at shapes the codec's
     matrices do not reach: C of 1, 3, 5 and 16 fragments, R not a
     multiple of 16, one and twelve 8 KiB tiles, random bit-matrices; then
-    every sum at its largest (an all-ones matrix at C = 128 on all-0xFF
-    planes, sum 128, and with every other row one short, sum 127)."""
+    on all-0xFF planes at C = 128, row sums each side of the powers of two
+    where the kernel changes how it pairs bits (N ones in the even rows,
+    N - 1 in the odd ones), up to every sum at its largest (all-ones
+    rows, sum 128)."""
     shapes = []
     for c, r, w in itertools.product(MXU_ODD_C, MXU_ODD_R, MXU_ODD_W):
         abits = torch.randint(0, 2, (r, c), dtype=torch.uint8, device="cuda",
@@ -414,17 +419,16 @@ def phase_mxu_odd(g) -> None:
         shapes.append([r, c, w])
     x = torch.full((128, 3 * gc.TILE3_W), 0xFF, dtype=torch.uint8,
                    device="cuda")
-    for odd in (False, True):
-        abits = np.ones((160, 128), dtype=np.uint8)
-        if odd:
-            abits[1::2, -1] = 0
+    for n in MXU_SUMS:
+        abits = np.zeros((160, 128), dtype=np.uint8)
+        abits[:, :n] = 1
+        abits[1::2, n - 1] = 0
         y = gc.apply_bitmatrix(abits, x, "mxu")
         same("mxu_apply", y, gc.mxu_apply_plain(abits, x),
-             f"all-ones, 0xFF planes, odd rows {odd}")
-        if int(y[1, 0]) != (0xFF if odd else 0):
-            raise AssertionError("mxu_apply: wrong parity at the largest sums")
-        shapes.append([160, 128, x.shape[1]])
-    emit("mxu-odd-shapes", ok=True, shapes=shapes)
+             f"row sums {n} and {n - 1}, 0xFF planes")
+        if (int(y[0, 0]), int(y[1, 0])) != ((0xFF, 0) if n % 2 else (0, 0xFF)):
+            raise AssertionError(f"mxu_apply: wrong parity at row sum {n}")
+    emit("mxu-odd-shapes", ok=True, shapes=shapes, row_sums=list(MXU_SUMS))
 
 
 # -- phase 4: the plane-major entry points -----------------------------------

@@ -60,13 +60,16 @@
 // and does 2*R*C*8W int8 operations (0.104 ms at 1,979e12/s); 8+4 0.200
 // vs 0.208 ms; 16+4 0.180 vs 0.347 ms, bound by operations.
 //
-// What binds it in practice is instruction issue, not bytes: at 4+2
-// encode (R = 48, C = 32, one k-step) the kernel issues 25.2 M warp mmas,
-// and every integer instruction around each one costs more than the mma.
-// The first version spent about 13 (shift and mask per B fragment, bit 0
-// out of each accumulator and shifted into place) and ran at a third of
-// the byte bound.  At 16+4 (C = 128, four k-steps) the integer work is
-// spread over four mmas and the mma.sync issue rate binds instead.
+// What binds it is instruction issue, not bytes.  The first version spent
+// about 13 integer instructions around each mma.sync (shift and mask per
+// B fragment, bit 0 out of each accumulator and shifted into place) and
+// issued 8 mmas per plane byte: at 4+2 encode (R = 48, C = 32, one
+// k-step) 25.2 M warp mmas, with the integer pipes (half the issue rate
+// of the others) as the limit, at a third of the byte bound.  At 16+4
+// (C = 128, four k-steps) the integer work spreads over four mmas per
+// extraction and the mma.sync issue rate binds.  So the design cuts both
+// the integer instructions per mma and the mmas per byte; times per step
+// are in PERF.md.
 //
 // Design.  A block of 8 warps walks 256-byte column tiles (a persistent
 // grid sized to the resident blocks) and each warp takes 32 byte columns
@@ -84,27 +87,44 @@
 //   the accumulators of lane (g, t) are then the 8 contiguous bytes
 //   8t..8t+7 of rows g and g+8: they leave as 8-byte stores, straight from
 //   registers.
-// - Bits: the B fragment for bit b is raw & (0x01010101 << b), one AND,
-//   made once per pass and shared by all MB row tiles.  The sum S of the
-//   selected bits then sits at 2^b * S, so bit b of the int32 accumulator
-//   is S mod 2, and acc |= d & (1 << b) is one LOP3 per accumulator.
-//   Bit 7's operand byte 0x80 is -128 as s8: the sum is -128 * S, and
-//   since -128 * S = 128 * S (mod 256), bit 7 is still S mod 2.  Bit 7's
-//   mma takes the accumulator of bits 0-6 as its C operand, so its low
-//   byte is the output byte with no extraction at all (bits 0-6 are not
-//   touched by a multiple of 128).  No sum overflows: |S| <= C <= 128.
-//   byte_perm moves byte 0 of each mma's accumulator to byte i of the
-//   output word.  About 5 integer instructions per mma at 4+2 (2/MB
-//   ANDs, 3.5 LOP3s, 0.4 byte_perms, the loads), 2 at 16+4.
+// - Bits in place: the B fragment for bit b is raw & (0x01010101 << b),
+//   one AND, made once per step and shared by all MB row tiles.  The sum
+//   S of the selected bits then sits at 2^b * S, so bit b of the int32
+//   accumulator is S mod 2, and acc |= d & (1 << b) is one LOP3 per
+//   accumulator.  Bit 7's operand byte 0x80 is -128 as s8: the sum is
+//   -128 * S, and since -128 * S = 128 * S (mod 256), bit 7 is still
+//   S mod 2.  No sum overflows: |S| <= C <= 128.
+// - Two bits per mma: with every row sum of the bit-matrix below 2^SP
+//   (SP = 4..7), one mma reads bits b and b + SP of each byte (mask
+//   0x01010101 * (2^b + 2^(b+SP))): its sum is 2^b * S + 2^(b+SP) * S',
+//   the first term is below 2^(b+SP), so bits b and b + SP hold S mod 2
+//   and S' mod 2 and one LOP3 takes both (for b + SP = 7 the second term
+//   is -128 * S', and bit 7 is S' mod 2 as above).  Steps 0..7-SP take
+//   such pairs, the rest one bit each: SP mmas per byte instead of 8.
+//   The kernel sums the rows of the bit-matrix it stages (entries taken
+//   mod 2, so every row sum is at most C) and picks the narrowest SP that
+//   holds; the codec's matrices have row sums 4-15 at 4+2 encode, 18-28
+//   at 4+2 decode, 34-56 at 8+4 and 73-74 at 16+4.  With a row sum of
+//   128 (SP = 8) bit 7's mma takes the accumulator of bits 0-6 as its C
+//   operand, so its low byte is the output byte with no extraction
+//   (bits 0-6 are not touched by a multiple of 128).  byte_perm moves
+//   byte 0 of each mma's accumulator to byte i of the output word.
 // - A fragments: the bit-matrix is zero-padded in shared memory to
 //   (rows to a whole number of passes of MB tiles of 16, columns to 32)
 //   and held in registers (4*KS*MB of them).  When one pass covers every
-//   row (4+2, 8+4) they are loaded once for the launch; at 16+4 once per
-//   pass and column tile, for 32*KS*MB mmas.
+//   row (4+2, 8+4 decode) they are loaded once for the launch; otherwise
+//   once per pass and column tile, for SP*4*KS*MB mmas.
+// - At one k-step the main loop is a function of its own, not inlined
+//   into the kernel: the compiler then gives it 128 registers (105
+//   inlined; two blocks per SM either way) and the 4+2 shapes run 7-8 %
+//   faster on the H100 (PERF.md); at more k-steps inlining is as fast
+//   or faster.
 // Why not wgmma: its B operand comes from shared memory in the canonical
 // K-major layout, so the 0/1 unpack would be written there at 8x the
-// packed tile, and mma.sync is not yet the limit at 4+2.  Bit order: any
-// consistent one is right (the TPU grouped b*TW + w over its tile).
+// packed tile, and the integer work around each product would stay; it
+// is the next step only if 16+4 stays bound by mma.sync issue.  Bit
+// order: any consistent one is right (the TPU grouped b*TW + w over its
+// tile).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -272,39 +292,36 @@ constexpr int kStages = 3;  // column tiles in the shared-memory ring
 // fragments of a pass (4*KS*MB registers) stay in registers.
 constexpr int mxu_max_mb(int ks) { return ks <= 2 ? 4 : 2; }
 
+// Bits of each plane byte that step st of a product with pair spacing SP
+// reads: bits st and st + SP for the first 8 - SP steps, then bit st
+// alone (SP = 8: bit st alone at every one of the 8 steps).
+__host__ __device__ constexpr uint32_t mxu_step_bits(int sp, int st) {
+  return sp < 8 && st < 8 - sp ? (1u << st) | (1u << (st + sp))
+                               : 1u << st;
+}
+
+// The widest spacing KS k-steps can need: a row sums to at most 32*KS.
+__host__ __device__ constexpr int mxu_max_sp(int ks) {
+  return ks == 1 ? 6 : ks < 4 ? 7 : 8;
+}
+
 // 16-byte chunk v of staged plane row p sits at chunk v ^ (2 * ((p/4)%4)),
 // so the four row quads a warp's B loads touch land on distinct banks.
 __device__ __forceinline__ int mxu_swizzle(int p, int v) {
   return v ^ (((p >> 2) & 3) << 1);
 }
 
-// KS: k-steps of 32 input planes (C_pad = 32*KS); MB: row tiles per pass;
-// the kernel makes `passes` passes of MB row tiles over each column tile.
-template <int KS, int MB>
-__global__ void __launch_bounds__(kThreads)
-    mxu_apply(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
-              const int8_t* __restrict__ abits, int64_t W, int C, int R,
-              int passes) {
+// The kernel's main loop for pair spacing SP; `as` holds the bit-matrix
+// and `xs` the ring, both set up by mxu_apply.
+template <int KS, int MB, int SP>
+__device__ __forceinline__ void mxu_run(const uint8_t* __restrict__ x,
+                                        uint8_t* __restrict__ y, int64_t W,
+                                        int C, int R, int passes,
+                                        const uint8_t* as, uint8_t* xs) {
   constexpr int kCp = KS * 32;
-  constexpr int kAS = kCp + 16;  // bit-matrix row stride in shared memory
-  constexpr int kSlot = kCp * kMmaTile;  // bytes of one staged column tile
-  const int rp = passes * MB * 16;
-  extern __shared__ __align__(128) uint8_t smem[];
-  uint8_t* as = smem;           // rp x kAS: the bit-matrix, zero-padded
-  uint8_t* xs = as + rp * kAS;  // kStages x kCp x kMmaTile, swizzled
-
-  for (int e = threadIdx.x; e < rp * kAS; e += kThreads) {
-    const int r = e / kAS;
-    const int c = e - r * kAS;
-    as[e] = (r < R && c < C) ? static_cast<uint8_t>(abits[r * C + c]) : 0;
-  }
-  // padded planes meet zero columns of A; keep them defined all the same
-  for (int e = threadIdx.x; e < (kCp - C) * kMmaTile; e += kThreads) {
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) xs[s * kSlot + C * kMmaTile + e] = 0;
-  }
-  __syncthreads();
-
+  constexpr int kAS = kCp + 16;
+  constexpr int kSlot = kCp * kMmaTile;
+  constexpr int kSteps = SP < 8 ? SP : 8;
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x & 31) >> 2;
   const int t = threadIdx.x & 3;
@@ -394,19 +411,22 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < 4; ++i) {
         uint32_t acc[MB][4];
 #pragma unroll
-        for (int bit = 0; bit < 8; ++bit) {
-          // bit `bit` of each plane byte, in place: the parity of the
-          // sum lands at bit `bit` of the accumulator (bit 7: see note)
+        for (int st = 0; st < kSteps; ++st) {
+          // the step's bits of each plane byte, in place: the parity of
+          // each sum lands at its bit of the accumulator (see the note)
+          const uint32_t m = mxu_step_bits(SP, st);
+          // bit 7 alone adds onto the accumulated bits 0-6
+          const bool chain = SP == 8 && st == 7;
           uint32_t bm[KS][2];
 #pragma unroll
           for (int ks = 0; ks < KS; ++ks) {
-            bm[ks][0] = b[ks][0][i] & (0x01010101u << bit);
-            bm[ks][1] = b[ks][1][i] & (0x01010101u << bit);
+            bm[ks][0] = b[ks][0][i] & (m * 0x01010101u);
+            bm[ks][1] = b[ks][1][i] & (m * 0x01010101u);
           }
 #pragma unroll
           for (int mt = 0; mt < MB; ++mt) {
             uint32_t d[4];
-            if (bit < 7) {
+            if (!chain) {
               mma_s8_zero(d, a[mt][0], bm[0][0], bm[0][1]);
             } else {
 #pragma unroll
@@ -419,13 +439,9 @@ __global__ void __launch_bounds__(kThreads)
             }
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-              if (bit == 0) {
-                acc[mt][q] = d[q] & 1u;
-              } else if (bit < 7) {
-                acc[mt][q] |= d[q] & (1u << bit);
-              } else {
-                acc[mt][q] = d[q];  // byte 0 is the output byte
-              }
+              acc[mt][q] = st == 0 ? d[q] & m
+                           : chain ? d[q]  // byte 0 is the output byte
+                                   : acc[mt][q] | (d[q] & m);
             }
           }
         }
@@ -457,6 +473,79 @@ __global__ void __launch_bounds__(kThreads)
     slot = (slot + 1) % kStages;
   }
   cp_async_wait<0>();
+}
+
+// mxu_run as a function of its own, not inlined (see the note)
+template <int KS, int MB, int SP>
+__device__ __noinline__ void mxu_run_outlined(const uint8_t* x, uint8_t* y,
+                                              int64_t W, int C, int R,
+                                              int passes, const uint8_t* as,
+                                              uint8_t* xs) {
+  mxu_run<KS, MB, SP>(x, y, W, C, R, passes, as, xs);
+}
+
+// mxu_run for the narrowest spacing SP >= 4 that holds sp, among those
+// KS k-steps can need.
+template <int KS, int MB, int SP = 4>
+__device__ __forceinline__ void mxu_dispatch(int sp, const uint8_t* x,
+                                             uint8_t* y, int64_t W, int C,
+                                             int R, int passes,
+                                             const uint8_t* as, uint8_t* xs) {
+  if constexpr (SP < mxu_max_sp(KS)) {
+    if (sp > SP) {
+      mxu_dispatch<KS, MB, SP + 1>(sp, x, y, W, C, R, passes, as, xs);
+      return;
+    }
+  }
+  if constexpr (KS == 1) {
+    mxu_run_outlined<KS, MB, SP>(x, y, W, C, R, passes, as, xs);
+  } else {
+    mxu_run<KS, MB, SP>(x, y, W, C, R, passes, as, xs);
+  }
+}
+
+// KS: k-steps of 32 input planes (C_pad = 32*KS); MB: row tiles per pass;
+// the kernel makes `passes` passes of MB row tiles over each column tile.
+template <int KS, int MB>
+__global__ void __launch_bounds__(kThreads)
+    mxu_apply(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
+              const int8_t* __restrict__ abits, int64_t W, int C, int R,
+              int passes) {
+  constexpr int kCp = KS * 32;
+  constexpr int kAS = kCp + 16;  // bit-matrix row stride in shared memory
+  constexpr int kSlot = kCp * kMmaTile;  // bytes of one staged column tile
+  const int rp = passes * MB * 16;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ int max_sum;       // the largest row sum of the bit-matrix
+  uint8_t* as = smem;           // rp x kAS: the bit-matrix, zero-padded
+  uint8_t* xs = as + rp * kAS;  // kStages x kCp x kMmaTile, swizzled
+
+  if (threadIdx.x == 0) max_sum = 0;
+  for (int e = threadIdx.x; e < rp * kAS; e += kThreads) {
+    const int r = e / kAS;
+    const int c = e - r * kAS;
+    // an entry's parity is all that counts mod 2: 0/1 keeps every row
+    // sum within C
+    as[e] = (r < R && c < C) ? abits[r * C + c] & 1 : 0;
+  }
+  // padded planes meet zero columns of A; keep them defined all the same
+  for (int e = threadIdx.x; e < (kCp - C) * kMmaTile; e += kThreads) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) xs[s * kSlot + C * kMmaTile + e] = 0;
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    int s = 0;
+    for (int c = 0; c < C; ++c) s += as[r * kAS + c];
+    atomicMax(&max_sum, s);
+  }
+  __syncthreads();
+  const int sp = max_sum < 16   ? 4
+                 : max_sum < 32  ? 5
+                 : max_sum < 64  ? 6
+                 : max_sum < 128 ? 7
+                                 : 8;
+  mxu_dispatch<KS, MB>(sp, x, y, W, C, R, passes, as, xs);
 }
 
 template <int KS, int MB>

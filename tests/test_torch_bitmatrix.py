@@ -134,9 +134,18 @@ def _mxu_case(case):
     """(bit-matrix, planes) of one extreme or odd mxu shape: ``ones`` is
     an all-ones (24, 128) matrix on all-0xFF planes, every sum 128 (bit
     7's operand is -128 as s8); ``ones-odd`` drops the last one of every
-    other row (sum 127); ``RxC`` is a random matrix with R not a multiple
-    of 16 and C not a multiple of 32."""
+    other row (sum 127); ``sumN`` has N ones in its even rows and N - 1
+    in its odd ones, on all-0xFF planes: every sum is N or N - 1, each
+    side of a power of two where the kernel's bit pairing changes;
+    ``RxC`` is a random matrix with R not a multiple of 16 and C not a
+    multiple of 32."""
     w = 8192
+    if case.startswith("sum"):
+        n = int(case[3:])
+        abits = np.zeros((24, 128), dtype=np.uint8)
+        abits[:, :n] = 1
+        abits[1::2, n - 1] = 0
+        return abits, np.full((128, w), 0xFF, dtype=np.uint8)
     if case.startswith("ones"):
         abits = np.ones((24, 128), dtype=np.uint8)
         if case == "ones-odd":
@@ -148,7 +157,9 @@ def _mxu_case(case):
             rng.integers(0, 256, (c, w), dtype=np.uint8))
 
 
-@pytest.mark.parametrize("case", ["ones", "ones-odd", "24x40", "8x24"])
+@pytest.mark.parametrize("case", ["ones", "ones-odd", "24x40", "8x24",
+                                  "sum15", "sum16", "sum31", "sum32",
+                                  "sum63", "sum64"])
 def test_mxu_extreme_and_odd_shapes_match_pallas(case):
     abits, x = _mxu_case(case)
     want = _pallas(abits, x, "mxu")
@@ -158,3 +169,6 @@ def test_mxu_extreme_and_odd_shapes_match_pallas(case):
         abits, torch.from_numpy(x)).numpy())
     if case.startswith("ones"):
         assert got[1, 0] == (0xFF if case == "ones-odd" else 0)
+    if case.startswith("sum"):
+        odd = int(case[3:]) % 2
+        assert (got[0, 0], got[1, 0]) == ((0xFF, 0) if odd else (0, 0xFF))

@@ -138,3 +138,29 @@ def test_mxu_apply_largest_sums_on_card(odd_rows):
     want = gf256_cuda.mxu_apply_plain(abits, x)
     assert torch.equal(got, want)
     assert int(want[1, 0]) == (0xFF if odd_rows else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tight", [True, False])
+@pytest.mark.parametrize("n", [15, 16, 31, 32, 63, 64, 127, 128])
+def test_mxu_apply_pairing_limits_on_card(n, tight):
+    """Row sums each side of a power of two, where the kernel changes how
+    many bits of each plane byte one product reads (it pairs two bits
+    while every row sum stays below 16, 32, 64 or 128): N ones in the
+    even rows, N - 1 in the odd ones, on all-0xFF planes and on random
+    ones; C is the fewest whole fragments that hold N (``tight``) or
+    128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    c = -(-n // 8) * 8 if tight else 128
+    abits = np.zeros((24, c), dtype=np.uint8)
+    abits[:, :n] = 1
+    abits[1::2, n - 1] = 0
+    ones = torch.full((c, 8192), 0xFF, dtype=torch.uint8, device="cuda")
+    got = gf256_cuda.apply_bitmatrix(abits, ones, "mxu")
+    assert torch.equal(got, gf256_cuda.mxu_apply_plain(abits, ones))
+    assert (int(got[0, 0]), int(got[1, 0])) == \
+        ((0xFF, 0) if n % 2 else (0, 0xFF))
+    _, x = _bits_and_planes(1, c, 3 * 32768, seed=n)
+    assert torch.equal(gf256_cuda.apply_bitmatrix(abits, x, "mxu"),
+                       gf256_cuda.mxu_apply_plain(abits, x))
