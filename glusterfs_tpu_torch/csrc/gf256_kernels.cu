@@ -516,7 +516,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kSlot = kCp * kMmaTile;  // bytes of one staged column tile
   const int rp = passes * MB * 16;
   extern __shared__ __align__(128) uint8_t smem[];
-  __shared__ int max_sum;       // the largest row sum of the bit-matrix
+  __shared__ unsigned max_sum;  // the largest row sum of the bit-matrix
   uint8_t* as = smem;           // rp x kAS: the bit-matrix, zero-padded
   uint8_t* xs = as + rp * kAS;  // kStages x kCp x kMmaTile, swizzled
 
@@ -535,8 +535,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   for (int r = threadIdx.x; r < R; r += kThreads) {
-    int s = 0;
-    for (int c = 0; c < C; ++c) s += as[r * kAS + c];
+    const auto* row = reinterpret_cast<const uint32_t*>(as + r * kAS);
+    unsigned s = 0;
+#pragma unroll
+    for (int c = 0; c < kCp / 4; ++c) s = __dp4a(row[c], 0x01010101u, s);
     atomicMax(&max_sum, s);
   }
   __syncthreads();
