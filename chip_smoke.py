@@ -80,8 +80,8 @@ STRIPES = (1, 3, 127, 129)
 MXU_ODD_C = (8, 24, 40, 128)
 MXU_ODD_R = (8, 16, 24, 160)
 MXU_ODD_W = (8192, 3 * 32768)
-# row sums each side of the powers of two where mxu_apply's bit pairing
-# changes, at C = 128 on 0xFF planes (128: all-ones rows)
+# largest row sums N (even rows; odd rows N - 1) each side of the powers
+# of two where mxu_apply's bit pairing changes, at C = 128 on 0xFF planes
 MXU_SUMS = (15, 16, 31, 32, 63, 64, 127, 128)
 # published H100 SXM HBM3 rate (NVIDIA data sheet)
 PEAK_BYTES_S = 3.35e12
@@ -182,6 +182,15 @@ def xor_ops_ms(abits: np.ndarray, columns: int, ops_s: float) -> float:
     word column); one LOP3 XORs three 32-bit words, so it does two."""
     xors = max(int(abits.sum()) - abits.shape[0], 0) * 64 * columns
     return xors / 4 / 2 / ops_s * 1e3
+
+
+def mxu_ops_ms(abits: np.ndarray, w: int) -> float:
+    """Least time of the int8 products ``mxu_apply`` does: 2*R*C
+    operations per product column, and per plane byte as many products
+    as the bits of the bit-matrix's largest row sum, at least 4 (it reads
+    two bits of a byte in one product while the sums allow)."""
+    products = max(4, int(abits.sum(axis=1).max()).bit_length())
+    return 2 * abits.size * products * w / PEAK_INT8_OPS_S * 1e3
 
 
 def timing(kern, plain, nbytes: int, ops_ms: float) -> dict:
@@ -341,8 +350,8 @@ def check_plane(g, forms, k: int, r: int, matrix: str,
         err = same(name, kern(), plain_fn(),
                    f"{k}+{r} {matrix} rows={rows} W={w}")
         nbytes = x.numel() + abits.shape[0] * w
-        ops_ms = (2 * abits.size * 8 * w / PEAK_INT8_OPS_S * 1e3
-                  if f == "mxu" else xor_ops_ms(abits, w // 64, ops_s))
+        ops_ms = (mxu_ops_ms(abits, w) if f == "mxu"
+                  else xor_ops_ms(abits, w // 64, ops_s))
         res = {"name": name, "config": f"{k}+{r}", "matrix": matrix,
                "rows": list(rows) if rows else None, "plane_w": w,
                "in_bytes": x.numel(), "out_bytes": abits.shape[0] * w,
@@ -406,8 +415,8 @@ def phase_mxu_odd(g) -> None:
     multiple of 16, one and twelve 8 KiB tiles, random bit-matrices; then
     on all-0xFF planes at C = 128, row sums each side of the powers of two
     where the kernel changes how it pairs bits (N ones in the even rows,
-    N - 1 in the odd ones), up to every sum at its largest (all-ones
-    rows, sum 128)."""
+    N - 1 in the odd ones), and every sum at its largest (an all-ones
+    matrix, sum 128)."""
     shapes = []
     for c, r, w in itertools.product(MXU_ODD_C, MXU_ODD_R, MXU_ODD_W):
         abits = torch.randint(0, 2, (r, c), dtype=torch.uint8, device="cuda",
@@ -419,16 +428,19 @@ def phase_mxu_odd(g) -> None:
         shapes.append([r, c, w])
     x = torch.full((128, 3 * gc.TILE3_W), 0xFF, dtype=torch.uint8,
                    device="cuda")
-    for n in MXU_SUMS:
+    sums = [(n, n - 1) for n in MXU_SUMS] + [(128, 128)]  # last: all ones
+    for even, odd in sums:
         abits = np.zeros((160, 128), dtype=np.uint8)
-        abits[:, :n] = 1
-        abits[1::2, n - 1] = 0
+        abits[0::2, :even] = 1
+        abits[1::2, :odd] = 1
         y = gc.apply_bitmatrix(abits, x, "mxu")
         same("mxu_apply", y, gc.mxu_apply_plain(abits, x),
-             f"row sums {n} and {n - 1}, 0xFF planes")
-        if (int(y[0, 0]), int(y[1, 0])) != ((0xFF, 0) if n % 2 else (0, 0xFF)):
-            raise AssertionError(f"mxu_apply: wrong parity at row sum {n}")
-    emit("mxu-odd-shapes", ok=True, shapes=shapes, row_sums=list(MXU_SUMS))
+             f"row sums {even} and {odd}, 0xFF planes")
+        if (int(y[0, 0]), int(y[1, 0])) != (0xFF * (even % 2),
+                                            0xFF * (odd % 2)):
+            raise AssertionError(f"mxu_apply: wrong parity at row sums "
+                                 f"{even} and {odd}")
+    emit("mxu-odd-shapes", ok=True, shapes=shapes, row_sums=sums)
 
 
 # -- phase 4: the plane-major entry points -----------------------------------

@@ -321,7 +321,6 @@ __device__ __forceinline__ void mxu_run(const uint8_t* __restrict__ x,
   constexpr int kCp = KS * 32;
   constexpr int kAS = kCp + 16;
   constexpr int kSlot = kCp * kMmaTile;
-  constexpr int kSteps = SP < 8 ? SP : 8;
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x & 31) >> 2;
   const int t = threadIdx.x & 3;
@@ -411,7 +410,7 @@ __device__ __forceinline__ void mxu_run(const uint8_t* __restrict__ x,
       for (int i = 0; i < 4; ++i) {
         uint32_t acc[MB][4];
 #pragma unroll
-        for (int st = 0; st < kSteps; ++st) {
+        for (int st = 0; st < SP; ++st) {  // SP steps per byte
           // the step's bits of each plane byte, in place: the parity of
           // each sum lands at its bit of the accumulator (see the note)
           const uint32_t m = mxu_step_bits(SP, st);
@@ -542,11 +541,9 @@ __global__ void __launch_bounds__(kThreads)
     atomicMax(&max_sum, s);
   }
   __syncthreads();
-  const int sp = max_sum < 16   ? 4
-                 : max_sum < 32  ? 5
-                 : max_sum < 64  ? 6
-                 : max_sum < 128 ? 7
-                                 : 8;
+  // the bits of the largest sum, at least 4: below 16 -> 4, below 32 ->
+  // 5, below 64 -> 6, below 128 -> 7, 128 -> 8
+  const int sp = max(4, 32 - __clz(static_cast<int>(max_sum)));
   mxu_dispatch<KS, MB>(sp, x, y, W, C, R, passes, as, xs);
 }
 
