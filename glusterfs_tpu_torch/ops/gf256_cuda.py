@@ -62,8 +62,10 @@ TILE3_W = 32768
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "gf256_kernels.cu"
 BUILD_DIR = _PKG / "_build"
+# --split-compile=0 optimizes the kernels' instantiations on every core:
+# the build takes a third of the time on the H100's host (PERF.md)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
