@@ -116,7 +116,7 @@
 //   once per pass and column tile, for SP*4*KS*MB mmas.
 // - At one k-step the main loop is a function of its own, not inlined
 //   into the kernel: the compiler then gives it 128 registers (105
-//   inlined; two blocks per SM either way) and the 4+2 shapes run 7-8 %
+//   inlined; two blocks per SM either way) and the 4+2 shapes run 6-8 %
 //   faster on the H100 (PERF.md); at more k-steps inlining is as fast
 //   or faster.
 // Why not wgmma: its B operand comes from shared memory in the canonical
