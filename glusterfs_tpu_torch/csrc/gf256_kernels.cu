@@ -288,6 +288,95 @@ __device__ __forceinline__ void cp_async_wait() {
 
 constexpr int kStages = 3;  // column tiles in the shared-memory ring
 
+// Plane-major XOR kernels: a persistent grid walks 256-byte column tiles
+// of every plane row through a ring of kStages shared-memory slots
+// (cp.async, one barrier per tile); each warp takes one output plane at a
+// time, 8 bytes a thread, and walks its mask over the staged planes.
+constexpr int kXorTile = 256;  // bytes of each plane row per ring slot
+
+__global__ void __launch_bounds__(kThreads)
+    plane_xor(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
+              const unsigned long long* __restrict__ masks, int64_t W, int C,
+              int R) {
+  extern __shared__ __align__(16) uint8_t ring[];  // kStages x C x kXorTile
+  const int slot_bytes = C * kXorTile;
+  const int64_t tiles = W / kXorTile;
+  int64_t next = blockIdx.x;
+  auto stage = [&](int slot) {
+    if (next < tiles) {
+      const uint8_t* src = x + next * kXorTile;
+      uint8_t* dst = ring + slot * slot_bytes;
+      for (int e = threadIdx.x; e < C * (kXorTile / 16); e += kThreads) {
+        const int p = e >> 4;
+        const int v = e & 15;
+        cp_async16(dst + p * kXorTile + v * 16, src + p * W + v * 16);
+      }
+    }
+    cp_async_commit();
+    next += gridDim.x;
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) stage(s);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int slot = 0;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    stage((slot + kStages - 1) % kStages);
+    const uint2* row =
+        reinterpret_cast<const uint2*>(ring + slot * slot_bytes) + lane;
+    for (int i = warp; i < R; i += kThreads / 32) {
+      unsigned long long m0 = masks[2 * i];
+      unsigned long long m1 = masks[2 * i + 1];
+      uint2 acc = make_uint2(0u, 0u);
+      while (m0) {
+        const int j = __ffsll(static_cast<long long>(m0)) - 1;
+        m0 &= m0 - 1;
+        const uint2 v = row[j * (kXorTile / 8)];
+        acc.x ^= v.x;
+        acc.y ^= v.y;
+      }
+      while (m1) {
+        const int j = 64 + __ffsll(static_cast<long long>(m1)) - 1;
+        m1 &= m1 - 1;
+        const uint2 v = row[j * (kXorTile / 8)];
+        acc.x ^= v.x;
+        acc.y ^= v.y;
+      }
+      *reinterpret_cast<uint2*>(y + i * W + tile * kXorTile + lane * 8) = acc;
+    }
+    slot = (slot + 1) % kStages;
+  }
+  cp_async_wait<0>();
+}
+
+// The grid is sized to the blocks that fit on the card at once.
+cudaError_t launch_plane_xor(const void* x, void* y, const void* masks,
+                             int64_t W, int C, int R, int device,
+                             cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kStages) * C * kXorTile;
+  cudaError_t err = cudaFuncSetAttribute(
+      plane_xor, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, plane_xor,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = W / kXorTile;
+  const int64_t resident =
+      static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int64_t blocks = tiles < resident ? tiles : resident;
+  plane_xor<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(x), static_cast<uint8_t*>(y),
+      static_cast<const unsigned long long*>(masks), W, C, R);
+  return cudaGetLastError();
+}
+
 // Row tiles of 16 output planes per pass (MB) for KS k-steps: the A
 // fragments of a pass (4*KS*MB registers) stay in registers.
 constexpr int mxu_max_mb(int ks) { return ks <= 2 ? 4 : 2; }
@@ -645,27 +734,20 @@ int gf256_xor_apply(const void* x, void* y, const void* masks, int64_t W,
                     int C, int R, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (W % 64) return cudaErrorInvalidValue;
-  return gf256::launch_xor<kPlaneMajor, kPlaneMajor, 8>(
-      x, y, masks, W / 64, C, R, static_cast<cudaStream_t>(stream));
+  if (W % 8192 || C < 1 || C > 128 || R < 1) return cudaErrorInvalidValue;
+  if (W == 0) return cudaSuccess;
+  return gf256::launch_plane_xor(x, y, masks, W, C, R, device,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 int gf256_xor3_apply(const void* x, void* y, const void* masks, int64_t W,
                      int C, int R, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (W % 64) return cudaErrorInvalidValue;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
-  if (err != cudaSuccess) return err;
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (static_cast<size_t>(32) * (C * 4 + 4) * 16 <= static_cast<size_t>(optin)) {
-    return gf256::launch_xor<kPlaneMajor, kPlaneMajor, 32>(x, y, masks, W / 64,
-                                                           C, R, s);
-  }
-  return gf256::launch_xor<kPlaneMajor, kPlaneMajor, 16>(x, y, masks, W / 64,
-                                                         C, R, s);
+  if (W % 32768 || C < 1 || C > 128 || R < 1) return cudaErrorInvalidValue;
+  if (W == 0) return cudaSuccess;
+  return gf256::launch_plane_xor(x, y, masks, W, C, R, device,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 int gf256_mxu_apply(const void* x, void* y, const void* abits, int64_t W,
