@@ -18,13 +18,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3. the three plane-major kernels (``xor_apply``, ``xor3_apply``,
    ``mxu_apply``) the same way: 4+2, 8+4 and 16+4 with the encode
    matrix and a decode mask at 256 MiB of plane data, every 4+2 decode
-   mask on ``mxu_apply``, ``mxu_apply`` at odd shapes (C of 1, 3, 5 and
+   mask on all three, ``mxu_apply`` at odd shapes (C of 1, 3, 5 and
    16 fragments, R not a multiple of 16, random matrices) and at row
    sums each side of 16, 32, 64 and 128 up to the largest (all-ones at
-   C = 128 on 0xFF planes), and ``encode``/``decode`` at stripe counts
-   1, 3, 127, 129; beside ``mxu_apply`` the time of ``torch._int_mm`` on
-   the already unpacked operand (the product alone, a yardstick the
-   port never calls);
+   C = 128 on 0xFF planes), ``xor_apply`` and ``xor3_apply`` at the same
+   odd shapes (one tile and 13 x 32 KiB, a tile count that no grid
+   divides), on all-ones, all-zero and single-one rows and past 160
+   output planes, and their refusal of widths their tiling cannot cover,
+   and ``encode``/``decode`` at stripe counts 1, 3, 127, 129; beside
+   ``mxu_apply`` the time of ``torch._int_mm`` on the already unpacked
+   operand (the product alone, a yardstick the port never calls);
 4. ``entry-plane-major``: ``encode`` then ``decode`` (2 of 6 fragments
    lost) of a 256 MiB payload at 4+2 through each of ``xor``, ``xor3``
    and ``mxu``;
@@ -75,11 +78,14 @@ BIG_BYTES = 1 << 30  # the large file, written in 64 MiB writes
 PLANE_BYTES = 256 * MiB  # plane data of the plane-major kernel rows
 CONFIGS = [(4, 2), (8, 4), (16, 4)]
 STRIPES = (1, 3, 127, 129)
-# mxu_apply's odd shapes: input planes (k = 1, 3, 5, 16), output planes,
-# plane-row bytes
+# the plane-major kernels' odd shapes: input planes (k = 1, 3, 5, 16),
+# output planes, plane-row bytes (mxu_apply; the XOR kernels take one
+# tile and 13 x 32 KiB, 832 column tiles of 512 bytes: no grid of whole
+# blocks per SM divides it)
 MXU_ODD_C = (8, 24, 40, 128)
 MXU_ODD_R = (8, 16, 24, 160)
 MXU_ODD_W = (8192, 3 * 32768)
+XOR_ODD_W = {"xor": (8192, 13 * 32768), "xor3": (32768, 13 * 32768)}
 # largest row sums N (even rows; odd rows N - 1) each side of the powers
 # of two where mxu_apply's bit pairing changes, at C = 128 on 0xFF planes
 MXU_SUMS = (15, 16, 31, 32, 63, 64, 127, 128)
@@ -94,7 +100,8 @@ PEAK_INT8_OPS_S = 1979e12
 LOP3_PER_CLK_SM = 64
 # the port's kernels are the functions of namespace gf256 in
 # csrc/gf256_kernels.cu (profiler names are demangled)
-CODEC_SYMBOLS = ("gf256::xor_apply<", "gf256::mxu_apply<")
+CODEC_SYMBOLS = ("gf256::xor_apply<", "gf256::plane_xor<",
+                 "gf256::mxu_apply<")
 
 REPLACES = {
     "fused_encode": "glusterfs_tpu/ops/gf256_pallas.py:342",
@@ -118,10 +125,12 @@ def nvidia_smi(query: str = "name,power.limit") -> str:
         timeout=60).stdout.strip().splitlines()[0]
 
 
-def mxu_resources(lib: Path) -> dict | None:
-    """Registers, spill (local) bytes and stack of each ``mxu_apply<KS,
-    MB>`` instantiation in the built library, from ``cuobjdump
-    --dump-resource-usage``; None where the toolkit has no cuobjdump."""
+def resources(lib: Path, pattern: str, key: str) -> dict | None:
+    """Registers, spill (local) bytes and stack of each instantiation of
+    one kernel template in the built library, from ``cuobjdump
+    --dump-resource-usage``: ``pattern`` matches its mangled name,
+    ``key`` formats its template arguments.  None where the toolkit has
+    no cuobjdump."""
     tool = Path(gc._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return None
@@ -132,12 +141,12 @@ def mxu_resources(lib: Path) -> dict | None:
     out = run.stdout.splitlines()
     res = {}
     for name, usage in zip(out, out[1:]):
-        m = re.search(r"mxu_applyILi(\d)ELi(\d)E", name)
+        m = re.search(pattern, name)
         if m and "REG:" in usage:
             fields = dict(f.split(":", 1) for f in usage.split()
                           if f.split(":", 1)[0] in ("REG", "STACK", "LOCAL"))
-            res[f"KS={m[1]},MB={m[2]}"] = {k.lower(): int(v)
-                                           for k, v in fields.items()}
+            res[key.format(*m.groups())] = {k.lower(): int(v)
+                                            for k, v in fields.items()}
     return res
 
 
@@ -358,6 +367,8 @@ def check_plane(g, forms, k: int, r: int, matrix: str,
                "max_abs_err": err, **timing(kern, plain_fn, nbytes, ops_ms)}
         if f == "mxu":
             res["product_ms"], res["product_w"] = int_mm_ms(abits, x)
+        else:
+            res["blocks_per_sm"] = gc.xor_blocks_per_sm(abits.shape[0], f)
         out[f] = res
     return out
 
@@ -391,18 +402,21 @@ def phase_plane_kernels(card: str, ops_s: float) -> dict:
                 if (k, r, matrix) == (4, 2, "encode"):
                     timed[row["name"]] = row
             torch.cuda.empty_cache()
-    # every 4+2 decode mask on the tensor-core kernel
+    # every 4+2 decode mask on each plane-major kernel
     k, r = 4, 2
     masks = list(itertools.combinations(range(k + r), k))
     x = torch.randint(0, 256, (k * 8, PLANE_BYTES // (k * 8)),
                       dtype=torch.uint8, device="cuda", generator=g)
     for m in masks:
-        abits = gc._bits("decode", k, (m,))
-        same("mxu_apply", gc._apply_cached("mxu", x, "decode", k, (m,)),
-             gc.mxu_apply_plain(abits, x), f"4+2 decode rows={m}")
-    emit("mxu-4+2-masks", ok=True, masks=len(masks), plane_w=x.shape[1])
+        want = gc.xor_apply_plain(gc._bits("decode", k, (m,)), x)
+        for f in gc.FORMULATIONS:
+            same(f"{f}_apply", gc._apply_cached(f, x, "decode", k, (m,)),
+                 want, f"4+2 decode rows={m}")
+    emit("plane-4+2-masks", ok=True, masks=len(masks), plane_w=x.shape[1],
+         kernels=[f"{f}_apply" for f in gc.FORMULATIONS])
     del x
     phase_mxu_odd(g)
+    phase_xor_odd(g)
     torch.cuda.empty_cache()
     emit("plane-kernels", ok=True,
          kernels=[f"{f}_apply" for f in gc.FORMULATIONS], card=card)
@@ -441,6 +455,86 @@ def phase_mxu_odd(g) -> None:
             raise AssertionError(f"mxu_apply: wrong parity at row sums "
                                  f"{even} and {odd}")
     emit("mxu-odd-shapes", ok=True, shapes=shapes, row_sums=sums)
+
+
+def _xor_cases():
+    """(name, bit-matrix, planes on the card) of the XOR kernels' edge
+    cases: an all-ones 160 x 128 matrix on 0xFF planes (every sum 128,
+    even: all bytes 0) and with every other row one short (0xFF), all-zero
+    rows among random ones, single-one rows (a copy of one plane each),
+    and 300 output planes (two passes of 160 over each tile)."""
+    ff = torch.full((128, 32768), 0xFF, dtype=torch.uint8, device="cuda")
+    ones = np.ones((160, 128), dtype=np.uint8)
+    odd = ones.copy()
+    odd[1::2, -1] = 0
+    rng = np.random.default_rng(5)
+    zero_rows = rng.integers(0, 2, (24, 40), dtype=np.uint8)
+    zero_rows[::3] = 0
+    single = np.zeros((40, 40), dtype=np.uint8)
+    single[np.arange(40), rng.permutation(40)] = 1
+    x40 = torch.from_numpy(rng.integers(0, 256, (40, 32768),
+                                        dtype=np.uint8)).cuda()
+    wide = rng.integers(0, 2, (300, 40), dtype=np.uint8)
+    return [("all-ones", ones, ff), ("all-ones-odd-rows", odd, ff),
+            ("zero-rows", zero_rows, x40), ("single-one-rows", single, x40),
+            ("300-rows", wide, x40)]
+
+
+def xor_refusals() -> dict:
+    """The raw C entry points of the XOR kernels, given a width or a
+    plane count their tiling cannot cover: each must return
+    cudaErrorInvalidValue (1) and launch nothing."""
+    lib = gc.library()
+    x = torch.zeros((129, 65536), dtype=torch.uint8, device="cuda")
+    y = torch.zeros_like(x)
+    masks = torch.zeros((129, 2), dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = {"xor": [(4096, 8, 8), (8192 + 512, 8, 8), (8192, 0, 8),
+                     (8192, 129, 8), (8192, 8, 0)],
+             "xor3": [(8192, 8, 8), (32768 + 8192, 8, 8), (32768, 129, 8)]}
+    out = {}
+    for f, bad in cases.items():
+        fn = getattr(lib, f"gf256_{f}_apply")
+        for w, c, r in bad:
+            err = fn(x.data_ptr(), y.data_ptr(), masks.data_ptr(), w, c, r,
+                     0, stream)
+            if err != 1:
+                raise AssertionError(f"{f}_apply took W={w} C={c} R={r} "
+                                     f"(error {err}, not 1)")
+            out.setdefault(f, []).append([w, c, r])
+    torch.cuda.synchronize()
+    if int(y.count_nonzero()):
+        raise AssertionError("a refused XOR launch wrote its output")
+    return out
+
+
+def phase_xor_odd(g) -> None:
+    """``xor_apply`` and ``xor3_apply`` against their plain version at the
+    odd shapes of ``mxu_apply`` (one tile, and 13 x 32 KiB), then on the
+    edge cases of :func:`_xor_cases`, then their refusals."""
+    shapes = []
+    for c, r in itertools.product(MXU_ODD_C, MXU_ODD_R):
+        abits = torch.randint(0, 2, (r, c), dtype=torch.uint8, device="cuda",
+                              generator=g).cpu().numpy()
+        for f, widths in XOR_ODD_W.items():
+            for w in widths:
+                x = torch.randint(0, 256, (c, w), dtype=torch.uint8,
+                                  device="cuda", generator=g)
+                same(f"{f}_apply", gc.apply_bitmatrix(abits, x, f),
+                     gc.xor_apply_plain(abits, x), f"R={r} C={c} W={w}")
+                shapes.append([f, r, c, w])
+    cases = []
+    for name, abits, x in _xor_cases():
+        want = gc.xor_apply_plain(abits, x)
+        for f in ("xor", "xor3"):
+            same(f"{f}_apply", gc.apply_bitmatrix(abits, x, f), want, name)
+        if name.startswith("all-ones") and (
+                int(want[0, 0]), int(want[1, 0])) != (
+                0, 0xFF if name.endswith("odd-rows") else 0):
+            raise AssertionError(f"xor plain version: wrong parity, {name}")
+        cases.append([name, *abits.shape])
+    emit("xor-odd-shapes", ok=True, shapes=shapes, cases=cases,
+         refused=xor_refusals())
 
 
 # -- phase 4: the plane-major entry points -----------------------------------
@@ -699,10 +793,17 @@ def main() -> int:
     card = nvidia_smi()
     t0 = time.perf_counter()
     gc.library()
+    lib = gc.build()
     emit("build", ok=True, card=card, build_s=time.perf_counter() - t0,
          torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
-         mxu_resources=mxu_resources(gc.build()))
+         mxu_resources=resources(lib, r"mxu_applyILi(\d)ELi(\d)E",
+                                 "KS={},MB={}"),
+         xor_resources=resources(lib, r"plane_xorILi(\d+)ELi(\d+)E",
+                                 "RB={},STAGES={}"),
+         xor_blocks_per_sm={f: {r: gc.xor_blocks_per_sm(r, f)
+                                for r in (8, 32, 48, 64, 96, 128, 160)}
+                            for f in ("xor", "xor3")})
     ops_s = peak_ops_s()
     timed = phase_kernels(card, ops_s)
     timed.update(phase_plane_kernels(card, ops_s))
@@ -745,6 +846,8 @@ def main() -> int:
         if name == "mxu_apply":
             row["product_ms"] = t["product_ms"]
             row["product_w"] = t["product_w"]
+        else:
+            row["blocks_per_sm"] = t.get("blocks_per_sm")
         kernels.append(row)
     emit("done", ok=True, total_s=time.perf_counter() - started)
     print(json.dumps({"kernels": kernels}), flush=True)

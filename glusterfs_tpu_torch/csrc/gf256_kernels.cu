@@ -33,25 +33,44 @@
 //
 // XOR kernels (the six but mxu_apply).  Bound: device memory.  A launch
 // reads each input byte once and writes each output byte once, and does
-// about R*C/2 16-byte XORs per stripe out of shared memory.  Design: a
-// block stages T stripes (word columns) in shared memory with coalesced
-// 16-byte loads (the tile of one fragment or plane row is contiguous in
-// every layout), then each group of T*4 threads takes one output plane
-// at a time across the tile's T columns x 4 16-byte lanes, so the mask
-// loop is uniform across each warp and the shared-memory reads hit no
-// bank twice (a 64-byte pad per staged column puts neighbouring columns
-// on opposite halves of the banks).  Stores are 64-byte runs, whole
-// sectors.  Any stripe count works: the last tile is masked.
+// about R*C/2 16-byte XORs per stripe.  C <= 128 holds because the masks
+// carry 128 bits (ops/gf256_cuda.py masks_of).
 //
-// xor_apply and xor3_apply compute the same function with the same body;
-// they differ only in the tile.  The TPU's xor3 existed to fill whole
-// vregs with (256, 128) row tiles where xor used (1, W) row slices.  The
-// Hopper counterpart of "more bytes in flight per step" is more columns
-// per block: xor_apply stages 8 columns (512 bytes of each plane row),
-// xor3_apply 32 (2 KiB of each plane row).  At C = 128 (k = 16) 32
-// columns would take 264 KB of shared memory, more than the 227 KB a
-// block may use, so xor3_apply takes 16 columns there.  C <= 128 holds
-// because the masks carry 128 bits (ops/gf256_cuda.py masks_of).
+// The four fused kernels (template xor_apply): a block stages T = 8
+// stripes (word columns) in shared memory with coalesced 16-byte loads
+// (the tile of one fragment is contiguous in both wire layouts), then
+// each group of 32 threads takes one output plane at a time across the
+// tile's 8 columns x 4 16-byte lanes, so the mask loop is uniform across
+// each warp and the shared-memory reads hit no bank twice (a 64-byte pad
+// per staged column puts neighbouring columns on opposite halves of the
+// banks).  Stores are 64-byte runs, whole sectors.  Any stripe count
+// works: the last tile is masked.
+//
+// xor_apply and xor3_apply (plane-major in and out) have a body of their
+// own, plane_xor.  The fused template reads the operand of every XOR
+// term from shared memory and uses it once; at 16+4 those reads alone
+// take 3.1x the byte bound at the SM's shared-memory rate, and the
+// template stages its whole tile before its first XOR.  plane_xor keeps
+// its outputs in registers and reads each staged input word once for a
+// whole block of output planes:
+// - A persistent grid (sized to the resident blocks) walks 512-byte
+//   column tiles; each thread of a warp owns one 16-byte lane of every
+//   plane row of the tile.
+// - Each of the 8 warps of a block holds RB output planes, one uint4
+//   accumulator each per thread (RB = 1..20, the fewest that cover R in
+//   one pass; more than 160 planes take several passes over a tile).
+// - Input planes stream through a ring of STAGES shared-memory slots of
+//   16 planes x 512 bytes (cp.async, one barrier per slot), so the ring
+//   does not grow with C and 2-3 blocks reside at any C.
+// - For each staged plane j a thread reads its 16 bytes once, and its
+//   warp reads one word of column bits (bit i: does the warp's output
+//   plane i take plane j), the same for all 32 lanes: the RB tests are
+//   uniform, and one shared-memory read feeds up to RB XORs.  The column
+//   bits are made from the masks once per launch, in shared memory.
+// xor3_apply is the same body with a deeper ring (8 slots against 4).
+// The TPU's xor3 filled whole vregs with (256, 128) row tiles where xor
+// used (1, W) row slices; on Hopper "more bytes in flight per step" is
+// more slots in flight, not a larger synchronous tile.
 //
 // mxu_apply, the tensor-core kernel.  y = (abits . unpack(x)) mod 2,
 // packed: the TPU's unpack -> int8 matmul -> & 1 -> pack, with the
@@ -136,7 +155,7 @@ constexpr int kChunk = 512;  // bytes per fragment chunk (8 planes)
 constexpr int kThreads = 256;
 constexpr int kMmaTile = 256;  // bytes of each plane row per mxu tile
 
-enum Layout : int { kStripeMajor = 0, kFragmentMajor = 1, kPlaneMajor = 2 };
+enum Layout : int { kStripeMajor = 0, kFragmentMajor = 1 };
 
 // Byte offset of plane p of stripe s in a buffer of `planes` planes per
 // stripe and S stripes.
@@ -144,7 +163,6 @@ template <int L>
 __device__ __forceinline__ int64_t plane_offset(int64_t s, int p, int planes,
                                                 int64_t S) {
   if (L == kStripeMajor) return (s * planes + p) * kWord;
-  if (L == kPlaneMajor) return (static_cast<int64_t>(p) * S + s) * kWord;
   return static_cast<int64_t>(p >> 3) * S * kChunk + s * kChunk +
          (p & 7) * kWord;
 }
@@ -169,8 +187,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // Stage the tile.  Element e walks global memory contiguously: in
   // stripe-major order the tile is one run; in fragment-major order one
-  // run per fragment (T chunks of 32 lanes); in plane-major order one
-  // run per plane row (T words of 4 lanes).
+  // run per fragment (T chunks of 32 lanes).
   for (int e = threadIdx.x; e < T * per_stripe; e += kThreads) {
     int t, p, q;
     if (IN == kStripeMajor) {
@@ -178,16 +195,11 @@ __global__ void __launch_bounds__(kThreads)
       const int rem = e - t * per_stripe;
       p = rem >> 2;
       q = rem & 3;
-    } else if (IN == kFragmentMajor) {
+    } else {
       const int f = e / (T * 32);
       const int rem = e - f * (T * 32);
       t = rem >> 5;
       p = f * 8 + ((rem & 31) >> 2);
-      q = rem & 3;
-    } else {
-      p = e / (T * 4);
-      const int rem = e - p * (T * 4);
-      t = rem >> 2;
       q = rem & 3;
     }
     const int64_t s = s0 + t;
@@ -288,93 +300,191 @@ __device__ __forceinline__ void cp_async_wait() {
 
 constexpr int kStages = 3;  // column tiles in the shared-memory ring
 
-// Plane-major XOR kernels: a persistent grid walks 256-byte column tiles
-// of every plane row through a ring of kStages shared-memory slots
-// (cp.async, one barrier per tile); each warp takes one output plane at a
-// time, 8 bytes a thread, and walks its mask over the staged planes.
-constexpr int kXorTile = 256;  // bytes of each plane row per ring slot
+// plane_xor, the body of xor_apply and xor3_apply (see the note at the
+// top).
+constexpr int kXorTile = 512;   // bytes of each plane row per column tile
+constexpr int kXorChunk = 16;   // input planes per ring slot
+constexpr int kXorWarps = kThreads / 32;  // blocks of RB output planes
+constexpr int kXorPlanes = 128;  // the masks' width
+constexpr int kXorMaxRB = 20;    // output planes a warp holds (8*20 = 160)
+constexpr int kXorStages = 4;    // ring slots of xor_apply
+constexpr int kXor3Stages = 8;   // ring slots of xor3_apply
 
-__global__ void __launch_bounds__(kThreads)
+template <int RB, int STAGES>
+__global__ void __launch_bounds__(kThreads, 2)
     plane_xor(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
               const unsigned long long* __restrict__ masks, int64_t W, int C,
-              int R) {
-  extern __shared__ __align__(16) uint8_t ring[];  // kStages x C x kXorTile
-  const int slot_bytes = C * kXorTile;
-  const int64_t tiles = W / kXorTile;
-  int64_t next = blockIdx.x;
-  auto stage = [&](int slot) {
-    if (next < tiles) {
-      const uint8_t* src = x + next * kXorTile;
-      uint8_t* dst = ring + slot * slot_bytes;
-      for (int e = threadIdx.x; e < C * (kXorTile / 16); e += kThreads) {
-        const int p = e >> 4;
-        const int v = e & 15;
-        cp_async16(dst + p * kXorTile + v * 16, src + p * W + v * 16);
-      }
-    }
-    cp_async_commit();
-    next += gridDim.x;
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) stage(s);
-
+              int R, int passes) {
+  // STAGES slots of kXorChunk planes x 32 lanes, then the column bits
+  extern __shared__ __align__(16) uint4 ring[];
+  uint32_t* cols = reinterpret_cast<uint32_t*>(ring + STAGES * kXorChunk * 32);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  int slot = 0;
-  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    stage((slot + kStages - 1) % kStages);
-    const uint2* row =
-        reinterpret_cast<const uint2*>(ring + slot * slot_bytes) + lane;
-    for (int i = warp; i < R; i += kThreads / 32) {
-      unsigned long long m0 = masks[2 * i];
-      unsigned long long m1 = masks[2 * i + 1];
-      uint2 acc = make_uint2(0u, 0u);
-      while (m0) {
-        const int j = __ffsll(static_cast<long long>(m0)) - 1;
-        m0 &= m0 - 1;
-        const uint2 v = row[j * (kXorTile / 8)];
-        acc.x ^= v.x;
-        acc.y ^= v.y;
+
+  // bit i of cols[b * kXorPlanes + j]: does output plane b * RB + i take
+  // input plane j (b = pass * kXorWarps + warp)
+  for (int e = threadIdx.x; e < passes * kXorWarps * kXorPlanes;
+       e += kThreads) {
+    const int j = e % kXorPlanes;
+    const int r0 = e / kXorPlanes * RB;
+    uint32_t bits = 0;
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      if (j < C && r0 + i < R) {
+        const unsigned long long m = masks[2 * (r0 + i) + (j >> 6)];
+        bits |= static_cast<uint32_t>((m >> (j & 63)) & 1ull) << i;
       }
-      while (m1) {
-        const int j = 64 + __ffsll(static_cast<long long>(m1)) - 1;
-        m1 &= m1 - 1;
-        const uint2 v = row[j * (kXorTile / 8)];
-        acc.x ^= v.x;
-        acc.y ^= v.y;
-      }
-      *reinterpret_cast<uint2*>(y + i * W + tile * kXorTile + lane * 8) = acc;
     }
-    slot = (slot + 1) % kStages;
+    cols[e] = bits;
+  }
+
+  // A block's steps: its column tiles, each in `passes` passes of
+  // `chunks` ring slots.
+  const int64_t tiles = W / kXorTile;
+  const int chunks = (C + kXorChunk - 1) / kXorChunk;
+  const int64_t steps =
+      tiles > blockIdx.x
+          ? ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * passes * chunks
+          : 0;
+  int64_t st_tile = blockIdx.x, st_step = 0;  // the next step to stage
+  int st_chunk = 0, st_pass = 0;
+  auto stage = [&](int slot) {
+    if (st_step < steps) {
+      const uint8_t* src = x + st_tile * kXorTile +
+                           static_cast<int64_t>(st_chunk) * kXorChunk * W;
+      uint4* dst = ring + slot * (kXorChunk * 32);
+#pragma unroll
+      for (int h = 0; h < kXorChunk * 32 / kThreads; ++h) {
+        const int e = threadIdx.x + h * kThreads;  // plane e / 32, lane e % 32
+        if (st_chunk * kXorChunk + (e >> 5) < C) {
+          cp_async16(dst + e, src + (e >> 5) * W + (e & 31) * 16);
+        }
+      }
+      if (++st_chunk == chunks) {
+        st_chunk = 0;
+        if (++st_pass == passes) {
+          st_pass = 0;
+          st_tile += gridDim.x;
+        }
+      }
+    }
+    cp_async_commit();  // an empty group keeps the count in step
+    ++st_step;
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) stage(s);
+
+  uint4 acc[RB];
+#pragma unroll
+  for (int i = 0; i < RB; ++i) acc[i] = make_uint4(0u, 0u, 0u, 0u);
+  int64_t tile = blockIdx.x;
+  int chunk = 0, pass = 0, slot = 0;
+  for (int64_t step = 0; step < steps; ++step) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // this slot is in; the slot staged next is free
+    stage((slot + STAGES - 1) % STAGES);
+    const int b = pass * kXorWarps + warp;
+    if (b * RB < R) {
+      const uint4* xs = ring + slot * (kXorChunk * 32) + lane;
+      const uint4* cb = reinterpret_cast<const uint4*>(
+          cols + b * kXorPlanes + chunk * kXorChunk);
+#pragma unroll
+      for (int q = 0; q < kXorChunk / 4; ++q) {
+        const uint4 b4 = cb[q];  // the same for every lane of the warp
+        if ((b4.x | b4.y | b4.z | b4.w) == 0) continue;
+        const uint32_t bits[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          // planes past C hold stale bytes; their bits are 0
+          const uint4 v = xs[(4 * q + jj) * 32];
+#pragma unroll
+          for (int i = 0; i < RB; ++i) {
+            if ((bits[jj] >> i) & 1u) xor_into(acc[i], v);
+          }
+        }
+      }
+    }
+    if (++chunk == chunks) {  // the pass over this tile is done
+      chunk = 0;
+      uint8_t* yt = y + tile * kXorTile + lane * 16;
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        if (b * RB + i < R) {
+          *reinterpret_cast<uint4*>(
+              yt + static_cast<int64_t>(b * RB + i) * W) = acc[i];
+        }
+        acc[i] = make_uint4(0u, 0u, 0u, 0u);
+      }
+      if (++pass == passes) {
+        pass = 0;
+        tile += gridDim.x;
+      }
+    }
+    slot = (slot + 1) % STAGES;
   }
   cp_async_wait<0>();
 }
 
+// One plane_xor call; with `per_sm` set, only the blocks per SM that the
+// occupancy calculator gives for it.
+struct PlaneXor {
+  const void* x;
+  void* y;
+  const void* masks;
+  int64_t W;
+  int C, R, device;
+  cudaStream_t stream;
+  int* per_sm;
+};
+
 // The grid is sized to the blocks that fit on the card at once.
-cudaError_t launch_plane_xor(const void* x, void* y, const void* masks,
-                             int64_t W, int C, int R, int device,
-                             cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kStages) * C * kXorTile;
+template <int RB, int STAGES>
+cudaError_t launch_plane_xor(const PlaneXor& a) {
+  const int passes = (a.R + kXorWarps * RB - 1) / (kXorWarps * RB);
+  const size_t smem =
+      static_cast<size_t>(STAGES) * kXorChunk * kXorTile +
+      static_cast<size_t>(passes) * kXorWarps * kXorPlanes * sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
-      plane_xor, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      plane_xor<RB, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               a.device);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, plane_xor,
-                                                      kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, plane_xor<RB, STAGES>, kThreads, smem);
   if (err != cudaSuccess) return err;
-  const int64_t tiles = W / kXorTile;
+  if (a.per_sm) {
+    *a.per_sm = per_sm;
+    return cudaSuccess;
+  }
+  const int64_t tiles = a.W / kXorTile;
   const int64_t resident =
       static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const int64_t blocks = tiles < resident ? tiles : resident;
-  plane_xor<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(x), static_cast<uint8_t*>(y),
-      static_cast<const unsigned long long*>(masks), W, C, R);
+  plane_xor<RB, STAGES>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, a.stream>>>(
+          static_cast<const uint8_t*>(a.x), static_cast<uint8_t*>(a.y),
+          static_cast<const unsigned long long*>(a.masks), a.W, a.C, a.R,
+          passes);
   return cudaGetLastError();
+}
+
+// RB: the fewest output planes per warp, of those built, that cover R in
+// one pass; past 160 planes, kXorMaxRB in several passes.
+template <int STAGES>
+cudaError_t dispatch_plane_xor(const PlaneXor& a) {
+  const int rb = (a.R + kXorWarps - 1) / kXorWarps;
+  if (rb <= 1) return launch_plane_xor<1, STAGES>(a);
+  if (rb <= 2) return launch_plane_xor<2, STAGES>(a);
+  if (rb <= 3) return launch_plane_xor<3, STAGES>(a);
+  if (rb <= 4) return launch_plane_xor<4, STAGES>(a);
+  if (rb <= 6) return launch_plane_xor<6, STAGES>(a);
+  if (rb <= 8) return launch_plane_xor<8, STAGES>(a);
+  if (rb <= 12) return launch_plane_xor<12, STAGES>(a);
+  if (rb <= 16) return launch_plane_xor<16, STAGES>(a);
+  return launch_plane_xor<kXorMaxRB, STAGES>(a);
 }
 
 // Row tiles of 16 output planes per pass (MB) for KS k-steps: the A
@@ -688,7 +798,6 @@ cudaError_t dispatch_mxu(const void* x, void* y, const void* abits, int64_t W,
 }  // namespace gf256
 
 using gf256::kFragmentMajor;
-using gf256::kPlaneMajor;
 using gf256::kStripeMajor;
 
 // Every entry point: x and y are device pointers (16-byte aligned), the
@@ -736,8 +845,9 @@ int gf256_xor_apply(const void* x, void* y, const void* masks, int64_t W,
   if (err != cudaSuccess) return err;
   if (W % 8192 || C < 1 || C > 128 || R < 1) return cudaErrorInvalidValue;
   if (W == 0) return cudaSuccess;
-  return gf256::launch_plane_xor(x, y, masks, W, C, R, device,
-                                 static_cast<cudaStream_t>(stream));
+  return gf256::dispatch_plane_xor<gf256::kXorStages>(
+      {x, y, masks, W, C, R, device, static_cast<cudaStream_t>(stream),
+       nullptr});
 }
 
 int gf256_xor3_apply(const void* x, void* y, const void* masks, int64_t W,
@@ -746,8 +856,24 @@ int gf256_xor3_apply(const void* x, void* y, const void* masks, int64_t W,
   if (err != cudaSuccess) return err;
   if (W % 32768 || C < 1 || C > 128 || R < 1) return cudaErrorInvalidValue;
   if (W == 0) return cudaSuccess;
-  return gf256::launch_plane_xor(x, y, masks, W, C, R, device,
-                                 static_cast<cudaStream_t>(stream));
+  return gf256::dispatch_plane_xor<gf256::kXor3Stages>(
+      {x, y, masks, W, C, R, device, static_cast<cudaStream_t>(stream),
+       nullptr});
+}
+
+// Blocks per SM of the kernel that xor_apply (wide = 0) or xor3_apply
+// (wide = 1) launches for R output planes, from the occupancy calculator;
+// a negative cudaError_t if the query fails.
+int gf256_plane_xor_blocks(int R, int wide, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -err;
+  if (R < 1) return -cudaErrorInvalidValue;
+  int per_sm = 0;
+  const gf256::PlaneXor a{nullptr, nullptr, nullptr, 0, 1, R, device,
+                          nullptr, &per_sm};
+  err = wide ? gf256::dispatch_plane_xor<gf256::kXor3Stages>(a)
+             : gf256::dispatch_plane_xor<gf256::kXorStages>(a);
+  return err != cudaSuccess ? -err : per_sm;
 }
 
 int gf256_mxu_apply(const void* x, void* y, const void* abits, int64_t W,

@@ -16,8 +16,8 @@ wrapper                layouts (in -> out)              bit-matrix
 =====================  ===============================  =================
 
 ``apply_bitmatrix`` takes ``formulation`` ``"xor"`` (kernel
-``xor_apply``), ``"xor3"`` (``xor3_apply``, the same XOR body on a wider
-tile) or ``"mxu"`` (``mxu_apply``, the tensor-core int8 product mod 2).
+``xor_apply``), ``"xor3"`` (``xor3_apply``, the same XOR body with a
+deeper ring of staged tiles) or ``"mxu"`` (``mxu_apply``, the tensor-core int8 product mod 2).
 ``encode`` and ``decode`` are the stripe-major entry points: ``"fused"``
 runs the fused kernels, the other three the transpose sandwich around
 ``apply_bitmatrix``, as ``gf256_pallas.encode/decode`` do.
@@ -123,10 +123,24 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = [vp, vp, vp, ctypes.c_int64, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, vp]
                 fn.restype = ctypes.c_int
+            lib.gf256_plane_xor_blocks.argtypes = [ctypes.c_int] * 3
+            lib.gf256_plane_xor_blocks.restype = ctypes.c_int
             lib.gf256_error_string.argtypes = [ctypes.c_int]
             lib.gf256_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def xor_blocks_per_sm(r: int, formulation: str, device: int = 0) -> int:
+    """Blocks per SM of the kernel that ``xor`` or ``xor3`` launches for
+    ``r`` output planes (the occupancy calculator's count; the grid is
+    that many blocks per SM)."""
+    lib = library()
+    n = lib.gf256_plane_xor_blocks(r, int(formulation == "xor3"), device)
+    if n < 0:
+        raise RuntimeError(f"{formulation}_apply occupancy: CUDA error {-n} "
+                           f"({lib.gf256_error_string(-n).decode()})")
+    return n
 
 
 # -- bit-matrices and their device operands ----------------------------------

@@ -8,7 +8,9 @@ equality.
 At 16+4 the Pallas XOR kernels take about 20 s each to trace in
 interpret mode, so there the encode matrix meets Pallas ``xor`` and
 ``xor3`` and the decode mask meets Pallas ``mxu``; every port
-formulation is held against each Pallas result computed."""
+formulation is held against each Pallas result computed.  Likewise the
+XOR kernels' odd shapes meet Pallas at C <= 40 and, at C = 128, the
+port's own ``gf256._xor_matmul_planes``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from glusterfs_tpu.ops import gf256, gf256_pallas
+from glusterfs_tpu_torch.ops import gf256 as port_gf256
 from glusterfs_tpu_torch.ops import gf256_cuda
 
 W = 32 << 10
@@ -172,3 +175,90 @@ def test_mxu_extreme_and_odd_shapes_match_pallas(case):
     if case.startswith("sum"):
         odd = int(case[3:]) % 2
         assert (got[0, 0], got[1, 0]) == ((0xFF, 0) if odd else (0, 0xFF))
+
+
+# the plane-major kernels' odd shapes (k = 1, 3, 5, 16 input fragments)
+ODD_C = (8, 24, 40, 128)
+ODD_R = (8, 16, 24, 160)
+
+
+def _xor_planes_ref(abits, x):
+    """The port's ``gf256._xor_matmul_planes`` on plane-major (C, W)."""
+    c, w = x.shape
+    y = port_gf256._xor_matmul_planes(
+        abits, x.reshape(c, w // 64, 64).transpose(1, 0, 2))
+    return y.transpose(1, 0, 2).reshape(abits.shape[0], w)
+
+
+def _xor_forms(abits, x):
+    """{(form, width): port result} of ``xor`` at one 8 KiB tile and at
+    32 KiB, and of ``xor3`` at 32 KiB, on the CPU."""
+    xt = torch.from_numpy(x)
+    return {("xor", 8192): gf256_cuda.apply_bitmatrix(
+                abits, xt[:, :8192].contiguous(), "xor").numpy(),
+            ("xor", W): gf256_cuda.apply_bitmatrix(abits, xt, "xor").numpy(),
+            ("xor3", W): gf256_cuda.apply_bitmatrix(abits, xt,
+                                                    "xor3").numpy()}
+
+
+@pytest.mark.parametrize("c", ODD_C)
+@pytest.mark.parametrize("r", ODD_R)
+def test_xor_forms_odd_shapes_match_pallas(r, c):
+    """``xor`` and ``xor3`` on the CPU at R not a multiple of 16 and C not
+    a multiple of 32: against Pallas ``xor`` (one 8 KiB tile) and
+    ``xor3`` (32 KiB) in interpret mode where C <= 40, and against the
+    port's own XOR chains everywhere."""
+    rng = np.random.default_rng(1000 * r + c)
+    abits = rng.integers(0, 2, (r, c), dtype=np.uint8)
+    x = rng.integers(0, 256, (c, W), dtype=np.uint8)
+    got = _xor_forms(abits, x)
+    want = _xor_planes_ref(abits, x)
+    if c <= 40:
+        assert np.array_equal(_pallas(abits, x[:, :8192], "xor"),
+                              want[:, :8192])
+        assert np.array_equal(_pallas(abits, x, "xor3"), want)
+    for (form, w), y in got.items():
+        assert np.array_equal(y, want[:, :w]), (form, w)
+
+
+def _xor_edge_case(case):
+    """(bit-matrix, planes) of one XOR edge case, as the card tests make
+    them: all-ones 160 x 128 on 0xFF planes (and every other row one
+    short), all-zero rows, single-one rows, 300 output planes."""
+    rng = np.random.default_rng(11)
+    if case.startswith("ones"):
+        abits = np.ones((160, 128), dtype=np.uint8)
+        if case == "ones-odd":
+            abits[1::2, -1] = 0
+        return abits, np.full((128, W), 0xFF, dtype=np.uint8)
+    x = rng.integers(0, 256, (40, W), dtype=np.uint8)
+    if case == "zero-rows":
+        abits = rng.integers(0, 2, (24, 40), dtype=np.uint8)
+        abits[::3] = 0
+    elif case == "single-one-rows":
+        abits = np.zeros((40, 40), dtype=np.uint8)
+        abits[np.arange(40), rng.permutation(40)] = 1
+    else:
+        abits = rng.integers(0, 2, (300, 40), dtype=np.uint8)
+    return abits, x
+
+
+@pytest.mark.parametrize("case", ["ones", "ones-odd", "zero-rows",
+                                  "single-one-rows", "300-rows"])
+def test_xor_forms_edge_cases(case):
+    """The XOR kernels' edge cases on the CPU against the port's XOR
+    chains, and against Pallas ``xor`` (one 8 KiB tile) where the matrix
+    is small (zero and single-one rows)."""
+    abits, x = _xor_edge_case(case)
+    want = _xor_planes_ref(abits, x)
+    for (form, w), y in _xor_forms(abits, x).items():
+        assert np.array_equal(y, want[:, :w]), (form, w)
+    if case in ("zero-rows", "single-one-rows"):
+        assert np.array_equal(_pallas(abits, x[:, :8192], "xor"),
+                              want[:, :8192])
+    if case.startswith("ones"):
+        assert want[1, 0] == (0xFF if case == "ones-odd" else 0)
+    if case == "zero-rows":
+        assert not want[::3].any()
+    if case == "single-one-rows":
+        assert np.array_equal(want, x[np.nonzero(abits)[1]])

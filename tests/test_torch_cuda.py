@@ -6,6 +6,8 @@ This file imports no JAX, so it also runs on a machine that has none:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -164,3 +166,119 @@ def test_mxu_apply_pairing_limits_on_card(n, tight):
     _, x = _bits_and_planes(1, c, 3 * 32768, seed=n)
     assert torch.equal(gf256_cuda.apply_bitmatrix(abits, x, "mxu"),
                        gf256_cuda.mxu_apply_plain(abits, x))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+
+
+# one tile, and 13 x 32 KiB: 832 column tiles, which no grid of whole
+# blocks per SM divides
+XOR_WIDTHS = {"xor": (8192, 13 * 32768), "xor3": (32768, 13 * 32768)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["xor", "xor3"])
+@pytest.mark.parametrize("c", [8, 24, 40, 128])
+@pytest.mark.parametrize("r", [8, 16, 24, 160])
+def test_xor_apply_odd_shapes_on_card(r, c, form):
+    """xor_apply and xor3_apply against their plain version, byte-exact,
+    at k = 1, 3, 5, 16 input fragments, R of 8 to 160 (1 to 20 output
+    planes per warp), one tile and a tile count no grid divides."""
+    _card()
+    for w in XOR_WIDTHS[form]:
+        abits, x = _bits_and_planes(r, c, w, seed=1000 * r + c)
+        got = gf256_cuda.apply_bitmatrix(abits, x, form)
+        assert torch.equal(got, gf256_cuda.xor_apply_plain(abits, x)), w
+
+
+def _xor_edge_case(case):
+    """(bit-matrix, planes) of one edge case of the XOR kernels."""
+    rng = np.random.default_rng(11)
+    if case.startswith("ones"):
+        abits = _ones(160, case == "ones-odd")
+        return abits, torch.full((128, 32768), 0xFF, dtype=torch.uint8,
+                                 device="cuda")
+    x = torch.from_numpy(rng.integers(0, 256, (40, 32768),
+                                      dtype=np.uint8)).cuda()
+    if case == "zero-rows":
+        abits = rng.integers(0, 2, (24, 40), dtype=np.uint8)
+        abits[::3] = 0
+    elif case == "single-one-rows":
+        abits = np.zeros((40, 40), dtype=np.uint8)
+        abits[np.arange(40), rng.permutation(40)] = 1
+    else:  # more than 160 output planes: several passes over each tile
+        abits = rng.integers(0, 2, (300, 40), dtype=np.uint8)
+    return abits, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ones", "ones-odd", "zero-rows",
+                                  "single-one-rows", "300-rows"])
+def test_xor_apply_edge_cases_on_card(case):
+    """An all-ones 160 x 128 matrix on 0xFF planes (sums of 128: all
+    bytes 0; 127 on every other row: 0xFF), all-zero rows, single-one
+    rows (copies of one plane) and 300 output planes, on both XOR
+    kernels."""
+    _card()
+    abits, x = _xor_edge_case(case)
+    want = gf256_cuda.xor_apply_plain(abits, x)
+    for form in ("xor", "xor3"):
+        assert torch.equal(gf256_cuda.apply_bitmatrix(abits, x, form),
+                           want), form
+    if case.startswith("ones"):
+        assert int(want[1, 0]) == (0xFF if case == "ones-odd" else 0)
+    if case == "single-one-rows":
+        assert torch.equal(want, x[np.nonzero(abits)[1].tolist()])
+
+
+@pytest.mark.cuda
+def test_plane_major_kernels_all_4p2_decode_masks_on_card():
+    """Every 4+2 decode mask (15 surviving sets) on xor_apply, xor3_apply
+    and mxu_apply, each against the plain XOR chains."""
+    _card()
+    x = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (32, 2 * 32768), dtype=np.uint8)).cuda()
+    masks = list(itertools.combinations(range(6), 4))
+    assert len(masks) == 15
+    for rows in masks:
+        want = gf256_cuda.xor_apply_plain(
+            gf256_cuda._bits("decode", 4, (rows,)), x)
+        for form in gf256_cuda.FORMULATIONS:
+            got = gf256_cuda._apply_cached(form, x, "decode", 4, (rows,))
+            assert torch.equal(got, want), (form, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,w,c,r", [
+    ("xor", 4096, 8, 8), ("xor", 8192 + 512, 8, 8), ("xor", 8192, 0, 8),
+    ("xor", 8192, 129, 8), ("xor", 8192, 8, 0), ("xor3", 8192, 8, 8),
+    ("xor3", 32768 + 8192, 8, 8), ("xor3", 32768, 129, 8)])
+def test_xor_entry_points_refuse_what_the_tiling_cannot_cover(form, w, c,
+                                                              r):
+    """The C entry point returns cudaErrorInvalidValue (1) for a width
+    that is not a whole number of the kernel's tiles (8 KiB, 32 KiB for
+    xor3) or a plane count outside 1..128 inputs, >= 1 outputs, and
+    writes nothing."""
+    _card()
+    lib = gf256_cuda.library()
+    x = torch.zeros((129, 65536), dtype=torch.uint8, device="cuda")
+    y = torch.zeros_like(x)
+    masks = torch.zeros((129, 2), dtype=torch.int64, device="cuda")
+    err = getattr(lib, f"gf256_{form}_apply")(
+        x.data_ptr(), y.data_ptr(), masks.data_ptr(), w, c, r, 0,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 1
+    assert int(y.count_nonzero()) == 0
+
+
+@pytest.mark.cuda
+def test_xor_blocks_per_sm_on_card():
+    """At least two blocks of either XOR kernel reside on an SM at every
+    row count up to 160 (the ring does not grow with C)."""
+    _card()
+    for form in ("xor", "xor3"):
+        for r in (8, 48, 96, 160, 300):
+            assert gf256_cuda.xor_blocks_per_sm(r, form) >= 2, (form, r)
