@@ -51,8 +51,8 @@
 // term from shared memory and uses it once; at 16+4 those reads alone
 // take 3.1x the byte bound at the SM's shared-memory rate, and the
 // template stages its whole tile before its first XOR.  plane_xor keeps
-// its outputs in registers and reads each staged input word once for a
-// whole block of output planes:
+// its outputs in registers and reads shared memory once per output plane
+// and 4 input planes:
 // - A persistent grid (sized to the resident blocks) walks 512-byte
 //   column tiles; each thread of a warp owns one 16-byte lane of every
 //   plane row of the tile.
@@ -60,14 +60,20 @@
 //   accumulator each per thread (RB = 1..20, the fewest that cover R in
 //   one pass; more than 160 planes take several passes over a tile).
 // - Input planes stream through a ring of STAGES shared-memory slots of
-//   16 planes x 512 bytes (cp.async, one barrier per slot), so the ring
-//   does not grow with C and 2-3 blocks reside at any C.
-// - For each staged plane j a thread reads its 16 bytes once, and its
-//   warp reads one word of column bits (bit i: does the warp's output
-//   plane i take plane j), the same for all 32 lanes: the RB tests are
-//   uniform, and one shared-memory read feeds up to RB XORs.  The column
-//   bits are made from the masks once per launch, in shared memory.
-// xor3_apply is the same body with a deeper ring (8 slots against 4).
+//   16 planes x 512 bytes (cp.async; a barrier when a slot has landed and
+//   one when its tables are written), so the ring does not grow with C
+//   and 2-3 blocks reside at any C.
+// - Four-plane tables: after each slot lands, the block writes, for each
+//   group of 4 staged planes and each lane, the 16 XORs of the group's
+//   subsets (entry e = XOR of the planes whose bit is set in e; two warps
+//   a group, 7 or 8 entries each, entry 0 is zero).  An output plane then
+//   takes its 4 mask bits of a group as an entry index: one 16-byte read
+//   and one 16-byte XOR per (output plane, 4 input planes), whatever the
+//   bits, where a test per bit costs the integer pipe a predicated XOR
+//   per pair.  The entries' byte offsets are made from the masks once per
+//   launch, 16 bits each, and read 8 at a time; they are the same for all
+//   32 lanes of a warp.
+// xor3_apply is the same body with a deeper ring (6 slots against 4).
 // The TPU's xor3 filled whole vregs with (256, 128) row tiles where xor
 // used (1, W) row slices; on Hopper "more bytes in flight per step" is
 // more slots in flight, not a larger synchronous tile.
@@ -304,38 +310,57 @@ constexpr int kStages = 3;  // column tiles in the shared-memory ring
 // top).
 constexpr int kXorTile = 512;   // bytes of each plane row per column tile
 constexpr int kXorChunk = 16;   // input planes per ring slot
+constexpr int kXorGroup = 4;    // input planes per table (16 entries)
+constexpr int kXorGroups = kXorChunk / kXorGroup;  // tables per slot
 constexpr int kXorWarps = kThreads / 32;  // blocks of RB output planes
 constexpr int kXorPlanes = 128;  // the masks' width
+constexpr int kXorMaskGroups = kXorPlanes / kXorGroup;  // tables per mask
 constexpr int kXorMaxRB = 20;    // output planes a warp holds (8*20 = 160)
 constexpr int kXorStages = 4;    // ring slots of xor_apply
-constexpr int kXor3Stages = 8;   // ring slots of xor3_apply
+constexpr int kXor3Stages = 6;   // ring slots of xor3_apply
+constexpr int kXorSlot = kXorChunk * 32;   // uint4 lanes of one ring slot
+constexpr int kXorTable = 16 * 32;         // uint4 lanes of one table
+
+// Output planes per warp padded to whole uint4 loads of 16-bit offsets.
+__host__ __device__ constexpr int xor_rows_padded(int rb) {
+  return (rb + 7) / 8 * 8;
+}
 
 template <int RB, int STAGES>
 __global__ void __launch_bounds__(kThreads, 2)
     plane_xor(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
               const unsigned long long* __restrict__ masks, int64_t W, int C,
               int R, int passes) {
-  // STAGES slots of kXorChunk planes x 32 lanes, then the column bits
+  constexpr int kRBP = xor_rows_padded(RB);
+  // STAGES ring slots, kXorGroups tables, then the table offsets
   extern __shared__ __align__(16) uint4 ring[];
-  uint32_t* cols = reinterpret_cast<uint32_t*>(ring + STAGES * kXorChunk * 32);
+  uint4* tab = ring + STAGES * kXorSlot;
+  uint16_t* offs = reinterpret_cast<uint16_t*>(tab + kXorGroups * kXorTable);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  // bit i of cols[b * kXorPlanes + j]: does output plane b * RB + i take
-  // input plane j (b = pass * kXorWarps + warp)
-  for (int e = threadIdx.x; e < passes * kXorWarps * kXorPlanes;
+  // offs[(b * kXorMaskGroups + G) * kRBP + i]: the byte offset in `tab`
+  // of the entry that output plane b * RB + i takes from the table of
+  // input planes 4G..4G+3 (b = pass * kXorWarps + warp): table G % 4,
+  // entry = the row's 4 mask bits there.  Padding rows take entry 0,
+  // which is zero.
+  for (int e = threadIdx.x; e < passes * kXorWarps * kXorMaskGroups * kRBP;
        e += kThreads) {
-    const int j = e % kXorPlanes;
-    const int r0 = e / kXorPlanes * RB;
-    uint32_t bits = 0;
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      if (j < C && r0 + i < R) {
-        const unsigned long long m = masks[2 * (r0 + i) + (j >> 6)];
-        bits |= static_cast<uint32_t>((m >> (j & 63)) & 1ull) << i;
-      }
+    const int i = e % kRBP;
+    const int grp = e / kRBP % kXorMaskGroups;
+    const int r = e / (kXorMaskGroups * kRBP) * RB + i;
+    unsigned nib = 0;
+    if (i < RB && r < R && kXorGroup * grp < C) {
+      const unsigned long long m = masks[2 * r + (grp >> 4)];
+      const int live = min(kXorGroup, C - kXorGroup * grp);
+      nib = static_cast<unsigned>(m >> (kXorGroup * grp & 63)) &
+            ((1u << live) - 1u);
     }
-    cols[e] = bits;
+    offs[e] = static_cast<uint16_t>(
+        ((grp % kXorGroups) * kXorTable + nib * 32) * sizeof(uint4));
+  }
+  for (int e = threadIdx.x; e < kXorGroups * 32; e += kThreads) {
+    tab[(e >> 5) * kXorTable + (e & 31)] = make_uint4(0u, 0u, 0u, 0u);
   }
 
   // A block's steps: its column tiles, each in `passes` passes of
@@ -352,9 +377,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (st_step < steps) {
       const uint8_t* src = x + st_tile * kXorTile +
                            static_cast<int64_t>(st_chunk) * kXorChunk * W;
-      uint4* dst = ring + slot * (kXorChunk * 32);
+      uint4* dst = ring + slot * kXorSlot;
 #pragma unroll
-      for (int h = 0; h < kXorChunk * 32 / kThreads; ++h) {
+      for (int h = 0; h < kXorSlot / kThreads; ++h) {
         const int e = threadIdx.x + h * kThreads;  // plane e / 32, lane e % 32
         if (st_chunk * kXorChunk + (e >> 5) < C) {
           cp_async16(dst + e, src + (e >> 5) * W + (e & 31) * 16);
@@ -379,27 +404,68 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int i = 0; i < RB; ++i) acc[i] = make_uint4(0u, 0u, 0u, 0u);
   int64_t tile = blockIdx.x;
   int chunk = 0, pass = 0, slot = 0;
+  const int grp = warp >> 1;  // the table this warp fills
   for (int64_t step = 0; step < steps; ++step) {
     cp_async_wait<STAGES - 2>();
-    __syncthreads();  // this slot is in; the slot staged next is free
+    __syncthreads();  // this slot is in; the tables and the slot staged
+                      // next are free
     stage((slot + STAGES - 1) % STAGES);
+
+    // Tables: entry e of table g is the XOR of the planes 4g + q of the
+    // slot with bit q of e set; warps 2g and 2g + 1 fill entries 1-7 and
+    // 8-15 (planes past C hold stale bytes; no mask bit selects them).
+    if (chunk * kXorChunk + grp * kXorGroup < C) {
+      const uint4* xs = ring + slot * kXorSlot + grp * kXorGroup * 32 + lane;
+      uint4* t = tab + grp * kXorTable + lane;
+      const uint4 v0 = xs[0], v1 = xs[32], v2 = xs[64];
+      uint4 v01 = v0;
+      xor_into(v01, v1);
+      auto put = [&](int e, uint4 a, const uint4& b) {  // entry e = a ^ b
+        xor_into(a, b);
+        t[e * 32] = a;
+      };
+      if ((warp & 1) == 0) {
+        t[1 * 32] = v0;
+        t[2 * 32] = v1;
+        t[3 * 32] = v01;
+        t[4 * 32] = v2;
+        put(5, v2, v0);
+        put(6, v2, v1);
+        put(7, v2, v01);
+      } else {
+        const uint4 v3 = xs[96];
+        t[8 * 32] = v3;
+        put(9, v3, v0);
+        put(10, v3, v1);
+        put(11, v3, v01);
+        uint4 v23 = v3;
+        xor_into(v23, v2);
+        t[12 * 32] = v23;
+        put(13, v23, v0);
+        put(14, v23, v1);
+        put(15, v23, v01);
+      }
+    }
+    __syncthreads();  // the tables are in
+
     const int b = pass * kXorWarps + warp;
     if (b * RB < R) {
-      const uint4* xs = ring + slot * (kXorChunk * 32) + lane;
-      const uint4* cb = reinterpret_cast<const uint4*>(
-          cols + b * kXorPlanes + chunk * kXorChunk);
+      const uint16_t* ob =
+          offs + (b * kXorMaskGroups + chunk * kXorGroups) * kRBP;
+      const uint8_t* tl = reinterpret_cast<const uint8_t*>(tab + lane);
 #pragma unroll
-      for (int q = 0; q < kXorChunk / 4; ++q) {
-        const uint4 b4 = cb[q];  // the same for every lane of the warp
-        if ((b4.x | b4.y | b4.z | b4.w) == 0) continue;
-        const uint32_t bits[4] = {b4.x, b4.y, b4.z, b4.w};
+      for (int g = 0; g < kXorGroups; ++g) {
+        if (chunk * kXorChunk + g * kXorGroup >= C) break;
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          // planes past C hold stale bytes; their bits are 0
-          const uint4 v = xs[(4 * q + jj) * 32];
+        for (int i0 = 0; i0 < RB; i0 += 8) {
+          // eight rows' offsets, the same for every lane of the warp
+          const uint4 o = *reinterpret_cast<const uint4*>(ob + g * kRBP + i0);
+          const uint32_t ow[4] = {o.x, o.y, o.z, o.w};
 #pragma unroll
-          for (int i = 0; i < RB; ++i) {
-            if ((bits[jj] >> i) & 1u) xor_into(acc[i], v);
+          for (int i = i0; i < i0 + 8 && i < RB; ++i) {
+            const uint32_t w = ow[(i - i0) >> 1];
+            const uint32_t off = (i & 1) ? w >> 16 : w & 0xFFFFu;
+            xor_into(acc[i], *reinterpret_cast<const uint4*>(tl + off));
           }
         }
       }
@@ -442,8 +508,10 @@ template <int RB, int STAGES>
 cudaError_t launch_plane_xor(const PlaneXor& a) {
   const int passes = (a.R + kXorWarps * RB - 1) / (kXorWarps * RB);
   const size_t smem =
-      static_cast<size_t>(STAGES) * kXorChunk * kXorTile +
-      static_cast<size_t>(passes) * kXorWarps * kXorPlanes * sizeof(uint32_t);
+      (static_cast<size_t>(STAGES) * kXorSlot + kXorGroups * kXorTable) *
+          sizeof(uint4) +
+      static_cast<size_t>(passes) * kXorWarps * kXorMaskGroups *
+          xor_rows_padded(RB) * sizeof(uint16_t);
   cudaError_t err = cudaFuncSetAttribute(
       plane_xor<RB, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
