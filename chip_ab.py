@@ -6,9 +6,9 @@ encode matrix and a decode mask, 256 MiB of plane data):
 
     python3 chip_ab.py [--kernel mxu|xor|xor3] OTHER.cu [OTHER.cu ...]
 
-``--kernel`` defaults to ``mxu``.
-The checkout's own source is always one of the versions (``tree``); each
-other is named by its file's stem, e.g. the source of a commit:
+(``--kernel`` defaults to ``mxu``.)  The checkout's own source is
+always one of the versions (``tree``); each other is named by its
+file's stem, e.g. the source of a commit:
 
     git show REV:glusterfs_tpu_torch/csrc/gf256_kernels.cu > _archive/rev.cu
 

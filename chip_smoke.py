@@ -846,8 +846,8 @@ def main() -> int:
         if name == "mxu_apply":
             row["product_ms"] = t["product_ms"]
             row["product_w"] = t["product_w"]
-        else:
-            row["blocks_per_sm"] = t.get("blocks_per_sm")
+        elif "blocks_per_sm" in t:
+            row["blocks_per_sm"] = t["blocks_per_sm"]
         kernels.append(row)
     emit("done", ok=True, total_s=time.perf_counter() - started)
     print(json.dumps({"kernels": kernels}), flush=True)

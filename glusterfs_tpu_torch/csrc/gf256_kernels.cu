@@ -459,7 +459,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int i0 = 0; i0 < RB; i0 += 8) {
           // eight rows' offsets, the same for every lane of the warp
-          const uint4 o = *reinterpret_cast<const uint4*>(ob + g * kRBP + i0);
+          const uint4 o =
+              *reinterpret_cast<const uint4*>(ob + g * kRBP + i0);
           const uint32_t ow[4] = {o.x, o.y, o.z, o.w};
 #pragma unroll
           for (int i = i0; i < i0 + 8 && i < RB; ++i) {

@@ -17,7 +17,8 @@ wrapper                layouts (in -> out)              bit-matrix
 
 ``apply_bitmatrix`` takes ``formulation`` ``"xor"`` (kernel
 ``xor_apply``), ``"xor3"`` (``xor3_apply``, the same XOR body with a
-deeper ring of staged tiles) or ``"mxu"`` (``mxu_apply``, the tensor-core int8 product mod 2).
+deeper ring of staged tiles) or ``"mxu"`` (``mxu_apply``, the
+tensor-core int8 product mod 2).
 ``encode`` and ``decode`` are the stripe-major entry points: ``"fused"``
 runs the fused kernels, the other three the transpose sandwich around
 ``apply_bitmatrix``, as ``gf256_pallas.encode/decode`` do.

@@ -20,6 +20,7 @@ import torch
 from glusterfs_tpu.ops import gf256, gf256_pallas
 from glusterfs_tpu_torch.ops import gf256 as port_gf256
 from glusterfs_tpu_torch.ops import gf256_cuda
+from tests.test_torch_cuda import XOR_EDGE_CASES, xor_edge_case
 
 W = 32 << 10
 FORMS = ("xor", "xor3", "mxu")
@@ -221,35 +222,12 @@ def test_xor_forms_odd_shapes_match_pallas(r, c):
         assert np.array_equal(y, want[:, :w]), (form, w)
 
 
-def _xor_edge_case(case):
-    """(bit-matrix, planes) of one XOR edge case, as the card tests make
-    them: all-ones 160 x 128 on 0xFF planes (and every other row one
-    short), all-zero rows, single-one rows, 300 output planes."""
-    rng = np.random.default_rng(11)
-    if case.startswith("ones"):
-        abits = np.ones((160, 128), dtype=np.uint8)
-        if case == "ones-odd":
-            abits[1::2, -1] = 0
-        return abits, np.full((128, W), 0xFF, dtype=np.uint8)
-    x = rng.integers(0, 256, (40, W), dtype=np.uint8)
-    if case == "zero-rows":
-        abits = rng.integers(0, 2, (24, 40), dtype=np.uint8)
-        abits[::3] = 0
-    elif case == "single-one-rows":
-        abits = np.zeros((40, 40), dtype=np.uint8)
-        abits[np.arange(40), rng.permutation(40)] = 1
-    else:
-        abits = rng.integers(0, 2, (300, 40), dtype=np.uint8)
-    return abits, x
-
-
-@pytest.mark.parametrize("case", ["ones", "ones-odd", "zero-rows",
-                                  "single-one-rows", "300-rows"])
+@pytest.mark.parametrize("case", XOR_EDGE_CASES)
 def test_xor_forms_edge_cases(case):
     """The XOR kernels' edge cases on the CPU against the port's XOR
     chains, and against Pallas ``xor`` (one 8 KiB tile) where the matrix
     is small (zero and single-one rows)."""
-    abits, x = _xor_edge_case(case)
+    abits, x = xor_edge_case(case)
     want = _xor_planes_ref(abits, x)
     for (form, w), y in _xor_forms(abits, x).items():
         assert np.array_equal(y, want[:, :w]), (form, w)

@@ -193,36 +193,44 @@ def test_xor_apply_odd_shapes_on_card(r, c, form):
         assert torch.equal(got, gf256_cuda.xor_apply_plain(abits, x)), w
 
 
-def _xor_edge_case(case):
-    """(bit-matrix, planes) of one edge case of the XOR kernels."""
+XOR_EDGE_CASES = ["ones", "ones-odd", "zero-rows", "single-one-rows",
+                  "300-rows"]
+
+
+def xor_edge_case(case):
+    """(bit-matrix, planes) in numpy of one edge case of the XOR kernels:
+    an all-ones 160 x 128 matrix on 0xFF planes (and every other row one
+    short), all-zero rows among random ones, single-one rows (a copy of
+    one plane each), 300 output planes (several passes over each tile);
+    32 KiB planes.  The CPU tests hold the plain version to the same
+    cases."""
+    w = 32768
     rng = np.random.default_rng(11)
     if case.startswith("ones"):
-        abits = _ones(160, case == "ones-odd")
-        return abits, torch.full((128, 32768), 0xFF, dtype=torch.uint8,
-                                 device="cuda")
-    x = torch.from_numpy(rng.integers(0, 256, (40, 32768),
-                                      dtype=np.uint8)).cuda()
+        return _ones(160, case == "ones-odd"), np.full((128, w), 0xFF,
+                                                       dtype=np.uint8)
+    x = rng.integers(0, 256, (40, w), dtype=np.uint8)
     if case == "zero-rows":
         abits = rng.integers(0, 2, (24, 40), dtype=np.uint8)
         abits[::3] = 0
     elif case == "single-one-rows":
         abits = np.zeros((40, 40), dtype=np.uint8)
         abits[np.arange(40), rng.permutation(40)] = 1
-    else:  # more than 160 output planes: several passes over each tile
+    else:
         abits = rng.integers(0, 2, (300, 40), dtype=np.uint8)
     return abits, x
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ones", "ones-odd", "zero-rows",
-                                  "single-one-rows", "300-rows"])
+@pytest.mark.parametrize("case", XOR_EDGE_CASES)
 def test_xor_apply_edge_cases_on_card(case):
     """An all-ones 160 x 128 matrix on 0xFF planes (sums of 128: all
     bytes 0; 127 on every other row: 0xFF), all-zero rows, single-one
     rows (copies of one plane) and 300 output planes, on both XOR
     kernels."""
     _card()
-    abits, x = _xor_edge_case(case)
+    abits, x = xor_edge_case(case)
+    x = torch.from_numpy(x).cuda()
     want = gf256_cuda.xor_apply_plain(abits, x)
     for form in ("xor", "xor3"):
         assert torch.equal(gf256_cuda.apply_bitmatrix(abits, x, form),
