@@ -46,6 +46,7 @@ _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _BODIES = {
     "mxu": [(re.compile(r"mxu_applyILi(\d)ELi(\d)E"), "KS={},MB={}")],
     "xor": [(re.compile(r"plane_xorILi(\d+)ELi(\d+)E"), "RB={},STAGES={}"),
+            (re.compile(r"plane_xorILi(\d+)E"), "RB={}"),
             (re.compile(r"plane_xorEPK"), "plane_xor"),
             (re.compile(r"xor_applyILi2ELi2ELi(\d+)E"), "T={}")],
 }

@@ -71,6 +71,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from glusterfs_tpu_torch.ops import gf256_cuda as gc  # noqa: E402
+from tests.test_torch_cuda import (XOR_EDGE_CASES, XOR_REFUSALS,  # noqa: E402
+                                   XOR_WIDTHS, xor_edge_case)
 
 MiB = 1 << 20
 SMALL_FILES = 64  # concurrent 1 MiB writes (the north-star writev)
@@ -79,13 +81,11 @@ PLANE_BYTES = 256 * MiB  # plane data of the plane-major kernel rows
 CONFIGS = [(4, 2), (8, 4), (16, 4)]
 STRIPES = (1, 3, 127, 129)
 # the plane-major kernels' odd shapes: input planes (k = 1, 3, 5, 16),
-# output planes, plane-row bytes (mxu_apply; the XOR kernels take one
-# tile and 13 x 32 KiB, 832 column tiles of 512 bytes: no grid of whole
-# blocks per SM divides it)
+# output planes, plane-row bytes (mxu_apply; the XOR kernels take the
+# card tests' XOR_WIDTHS)
 MXU_ODD_C = (8, 24, 40, 128)
 MXU_ODD_R = (8, 16, 24, 160)
 MXU_ODD_W = (8192, 3 * 32768)
-XOR_ODD_W = {"xor": (8192, 13 * 32768), "xor3": (32768, 13 * 32768)}
 # largest row sums N (even rows; odd rows N - 1) each side of the powers
 # of two where mxu_apply's bit pairing changes, at C = 128 on 0xFF planes
 MXU_SUMS = (15, 16, 31, 32, 63, 64, 127, 128)
@@ -368,7 +368,7 @@ def check_plane(g, forms, k: int, r: int, matrix: str,
         if f == "mxu":
             res["product_ms"], res["product_w"] = int_mm_ms(abits, x)
         else:
-            res["blocks_per_sm"] = gc.xor_blocks_per_sm(abits.shape[0], f)
+            res["blocks_per_sm"] = gc.xor_blocks_per_sm(abits.shape[0])
         out[f] = res
     return out
 
@@ -408,10 +408,14 @@ def phase_plane_kernels(card: str, ops_s: float) -> dict:
     x = torch.randint(0, 256, (k * 8, PLANE_BYTES // (k * 8)),
                       dtype=torch.uint8, device="cuda", generator=g)
     for m in masks:
-        want = gc.xor_apply_plain(gc._bits("decode", k, (m,)), x)
+        abits = gc._bits("decode", k, (m,))
+        want = {"mxu": gc.mxu_apply_plain(abits, x),
+                "xor": gc.xor_apply_plain(abits, x)}
         for f in gc.FORMULATIONS:
             same(f"{f}_apply", gc._apply_cached(f, x, "decode", k, (m,)),
-                 want, f"4+2 decode rows={m}")
+                 want["mxu" if f == "mxu" else "xor"],
+                 f"4+2 decode rows={m}")
+        del want
     emit("plane-4+2-masks", ok=True, masks=len(masks), plane_w=x.shape[1],
          kernels=[f"{f}_apply" for f in gc.FORMULATIONS])
     del x
@@ -457,51 +461,24 @@ def phase_mxu_odd(g) -> None:
     emit("mxu-odd-shapes", ok=True, shapes=shapes, row_sums=sums)
 
 
-def _xor_cases():
-    """(name, bit-matrix, planes on the card) of the XOR kernels' edge
-    cases: an all-ones 160 x 128 matrix on 0xFF planes (every sum 128,
-    even: all bytes 0) and with every other row one short (0xFF), all-zero
-    rows among random ones, single-one rows (a copy of one plane each),
-    and 300 output planes (two passes of 160 over each tile)."""
-    ff = torch.full((128, 32768), 0xFF, dtype=torch.uint8, device="cuda")
-    ones = np.ones((160, 128), dtype=np.uint8)
-    odd = ones.copy()
-    odd[1::2, -1] = 0
-    rng = np.random.default_rng(5)
-    zero_rows = rng.integers(0, 2, (24, 40), dtype=np.uint8)
-    zero_rows[::3] = 0
-    single = np.zeros((40, 40), dtype=np.uint8)
-    single[np.arange(40), rng.permutation(40)] = 1
-    x40 = torch.from_numpy(rng.integers(0, 256, (40, 32768),
-                                        dtype=np.uint8)).cuda()
-    wide = rng.integers(0, 2, (300, 40), dtype=np.uint8)
-    return [("all-ones", ones, ff), ("all-ones-odd-rows", odd, ff),
-            ("zero-rows", zero_rows, x40), ("single-one-rows", single, x40),
-            ("300-rows", wide, x40)]
-
-
 def xor_refusals() -> dict:
     """The raw C entry points of the XOR kernels, given a width or a
-    plane count their tiling cannot cover: each must return
-    cudaErrorInvalidValue (1) and launch nothing."""
+    plane count their tiling cannot cover (the card tests'
+    XOR_REFUSALS): each must return cudaErrorInvalidValue (1) and launch
+    nothing."""
     lib = gc.library()
     x = torch.zeros((129, 65536), dtype=torch.uint8, device="cuda")
     y = torch.zeros_like(x)
     masks = torch.zeros((129, 2), dtype=torch.int64, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    cases = {"xor": [(4096, 8, 8), (8192 + 512, 8, 8), (8192, 0, 8),
-                     (8192, 129, 8), (8192, 8, 0)],
-             "xor3": [(8192, 8, 8), (32768 + 8192, 8, 8), (32768, 129, 8)]}
     out = {}
-    for f, bad in cases.items():
-        fn = getattr(lib, f"gf256_{f}_apply")
-        for w, c, r in bad:
-            err = fn(x.data_ptr(), y.data_ptr(), masks.data_ptr(), w, c, r,
-                     0, stream)
-            if err != 1:
-                raise AssertionError(f"{f}_apply took W={w} C={c} R={r} "
-                                     f"(error {err}, not 1)")
-            out.setdefault(f, []).append([w, c, r])
+    for f, w, c, r in XOR_REFUSALS:
+        err = getattr(lib, f"gf256_{f}_apply")(
+            x.data_ptr(), y.data_ptr(), masks.data_ptr(), w, c, r, 0, stream)
+        if err != 1:
+            raise AssertionError(f"{f}_apply took W={w} C={c} R={r} "
+                                 f"(error {err}, not 1)")
+        out.setdefault(f, []).append([w, c, r])
     torch.cuda.synchronize()
     if int(y.count_nonzero()):
         raise AssertionError("a refused XOR launch wrote its output")
@@ -511,12 +488,12 @@ def xor_refusals() -> dict:
 def phase_xor_odd(g) -> None:
     """``xor_apply`` and ``xor3_apply`` against their plain version at the
     odd shapes of ``mxu_apply`` (one tile, and 13 x 32 KiB), then on the
-    edge cases of :func:`_xor_cases`, then their refusals."""
+    card tests' edge cases (XOR_EDGE_CASES), then their refusals."""
     shapes = []
     for c, r in itertools.product(MXU_ODD_C, MXU_ODD_R):
         abits = torch.randint(0, 2, (r, c), dtype=torch.uint8, device="cuda",
                               generator=g).cpu().numpy()
-        for f, widths in XOR_ODD_W.items():
+        for f, widths in XOR_WIDTHS.items():
             for w in widths:
                 x = torch.randint(0, 256, (c, w), dtype=torch.uint8,
                                   device="cuda", generator=g)
@@ -524,13 +501,15 @@ def phase_xor_odd(g) -> None:
                      gc.xor_apply_plain(abits, x), f"R={r} C={c} W={w}")
                 shapes.append([f, r, c, w])
     cases = []
-    for name, abits, x in _xor_cases():
+    for name in XOR_EDGE_CASES:
+        abits, x = xor_edge_case(name)
+        x = torch.from_numpy(x).cuda()
         want = gc.xor_apply_plain(abits, x)
         for f in ("xor", "xor3"):
             same(f"{f}_apply", gc.apply_bitmatrix(abits, x, f), want, name)
-        if name.startswith("all-ones") and (
+        if name.startswith("ones") and (
                 int(want[0, 0]), int(want[1, 0])) != (
-                0, 0xFF if name.endswith("odd-rows") else 0):
+                0, 0xFF if name == "ones-odd" else 0):
             raise AssertionError(f"xor plain version: wrong parity, {name}")
         cases.append([name, *abits.shape])
     emit("xor-odd-shapes", ok=True, shapes=shapes, cases=cases,
@@ -799,11 +778,9 @@ def main() -> int:
          device=torch.cuda.get_device_name(0),
          mxu_resources=resources(lib, r"mxu_applyILi(\d)ELi(\d)E",
                                  "KS={},MB={}"),
-         xor_resources=resources(lib, r"plane_xorILi(\d+)ELi(\d+)E",
-                                 "RB={},STAGES={}"),
-         xor_blocks_per_sm={f: {r: gc.xor_blocks_per_sm(r, f)
-                                for r in (8, 32, 48, 64, 96, 128, 160)}
-                            for f in ("xor", "xor3")})
+         xor_resources=resources(lib, r"plane_xorILi(\d+)E", "RB={}"),
+         xor_blocks_per_sm={r: gc.xor_blocks_per_sm(r)
+                            for r in (8, 32, 48, 64, 96, 128, 160)})
     ops_s = peak_ops_s()
     timed = phase_kernels(card, ops_s)
     timed.update(phase_plane_kernels(card, ops_s))

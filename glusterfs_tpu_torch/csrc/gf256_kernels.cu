@@ -59,7 +59,7 @@
 // - Each of the 8 warps of a block holds RB output planes, one uint4
 //   accumulator each per thread (RB = 1..20, the fewest that cover R in
 //   one pass; more than 160 planes take several passes over a tile).
-// - Input planes stream through a ring of STAGES shared-memory slots of
+// - Input planes stream through a ring of 6 shared-memory slots of
 //   16 planes x 512 bytes (cp.async; a barrier when a slot has landed and
 //   one when its tables are written), so the ring does not grow with C
 //   and 2-3 blocks reside at any C.
@@ -73,10 +73,11 @@
 //   per pair.  The entries' byte offsets are made from the masks once per
 //   launch, 16 bits each, and read 8 at a time; they are the same for all
 //   32 lanes of a warp.
-// xor3_apply is the same body with a deeper ring (6 slots against 4).
-// The TPU's xor3 filled whole vregs with (256, 128) row tiles where xor
-// used (1, W) row slices; on Hopper "more bytes in flight per step" is
-// more slots in flight, not a larger synchronous tile.
+// xor_apply and xor3_apply launch the same kernel; they differ only in
+// the widths they take.  The TPU's xor3 filled whole vregs with (256,
+// 128) row tiles where xor used (1, W) row slices; on Hopper "more bytes
+// in flight per step" is more slots in flight, not a larger synchronous
+// tile, and 6 slots were no slower than 4 for either.
 //
 // mxu_apply, the tensor-core kernel.  y = (abits . unpack(x)) mod 2,
 // packed: the TPU's unpack -> int8 matmul -> & 1 -> pack, with the
@@ -316,8 +317,7 @@ constexpr int kXorWarps = kThreads / 32;  // blocks of RB output planes
 constexpr int kXorPlanes = 128;  // the masks' width
 constexpr int kXorMaskGroups = kXorPlanes / kXorGroup;  // tables per mask
 constexpr int kXorMaxRB = 20;    // output planes a warp holds (8*20 = 160)
-constexpr int kXorStages = 4;    // ring slots of xor_apply
-constexpr int kXor3Stages = 6;   // ring slots of xor3_apply
+constexpr int kXorStages = 6;    // ring slots
 constexpr int kXorSlot = kXorChunk * 32;   // uint4 lanes of one ring slot
 constexpr int kXorTable = 16 * 32;         // uint4 lanes of one table
 
@@ -326,15 +326,15 @@ __host__ __device__ constexpr int xor_rows_padded(int rb) {
   return (rb + 7) / 8 * 8;
 }
 
-template <int RB, int STAGES>
+template <int RB>
 __global__ void __launch_bounds__(kThreads, 2)
     plane_xor(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
               const unsigned long long* __restrict__ masks, int64_t W, int C,
               int R, int passes) {
   constexpr int kRBP = xor_rows_padded(RB);
-  // STAGES ring slots, kXorGroups tables, then the table offsets
+  // kXorStages ring slots, kXorGroups tables, then the table offsets
   extern __shared__ __align__(16) uint4 ring[];
-  uint4* tab = ring + STAGES * kXorSlot;
+  uint4* tab = ring + kXorStages * kXorSlot;
   uint16_t* offs = reinterpret_cast<uint16_t*>(tab + kXorGroups * kXorTable);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -397,7 +397,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     ++st_step;
   };
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) stage(s);
+  for (int s = 0; s < kXorStages - 1; ++s) stage(s);
 
   uint4 acc[RB];
 #pragma unroll
@@ -406,10 +406,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   int chunk = 0, pass = 0, slot = 0;
   const int grp = warp >> 1;  // the table this warp fills
   for (int64_t step = 0; step < steps; ++step) {
-    cp_async_wait<STAGES - 2>();
+    cp_async_wait<kXorStages - 2>();
     __syncthreads();  // this slot is in; the tables and the slot staged
                       // next are free
-    stage((slot + STAGES - 1) % STAGES);
+    stage((slot + kXorStages - 1) % kXorStages);
 
     // Tables: entry e of table g is the XOR of the planes 4g + q of the
     // slot with bit q of e set; warps 2g and 2g + 1 fill entries 1-7 and
@@ -487,7 +487,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         tile += gridDim.x;
       }
     }
-    slot = (slot + 1) % STAGES;
+    slot = (slot + 1) % kXorStages;
   }
   cp_async_wait<0>();
 }
@@ -505,16 +505,16 @@ struct PlaneXor {
 };
 
 // The grid is sized to the blocks that fit on the card at once.
-template <int RB, int STAGES>
+template <int RB>
 cudaError_t launch_plane_xor(const PlaneXor& a) {
   const int passes = (a.R + kXorWarps * RB - 1) / (kXorWarps * RB);
   const size_t smem =
-      (static_cast<size_t>(STAGES) * kXorSlot + kXorGroups * kXorTable) *
+      (static_cast<size_t>(kXorStages) * kXorSlot + kXorGroups * kXorTable) *
           sizeof(uint4) +
       static_cast<size_t>(passes) * kXorWarps * kXorMaskGroups *
           xor_rows_padded(RB) * sizeof(uint16_t);
   cudaError_t err = cudaFuncSetAttribute(
-      plane_xor<RB, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      plane_xor<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
@@ -522,7 +522,7 @@ cudaError_t launch_plane_xor(const PlaneXor& a) {
                                a.device);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, plane_xor<RB, STAGES>, kThreads, smem);
+      &per_sm, plane_xor<RB>, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (a.per_sm) {
     *a.per_sm = per_sm;
@@ -532,7 +532,7 @@ cudaError_t launch_plane_xor(const PlaneXor& a) {
   const int64_t resident =
       static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const int64_t blocks = tiles < resident ? tiles : resident;
-  plane_xor<RB, STAGES>
+  plane_xor<RB>
       <<<static_cast<unsigned>(blocks), kThreads, smem, a.stream>>>(
           static_cast<const uint8_t*>(a.x), static_cast<uint8_t*>(a.y),
           static_cast<const unsigned long long*>(a.masks), a.W, a.C, a.R,
@@ -542,18 +542,17 @@ cudaError_t launch_plane_xor(const PlaneXor& a) {
 
 // RB: the fewest output planes per warp, of those built, that cover R in
 // one pass; past 160 planes, kXorMaxRB in several passes.
-template <int STAGES>
 cudaError_t dispatch_plane_xor(const PlaneXor& a) {
   const int rb = (a.R + kXorWarps - 1) / kXorWarps;
-  if (rb <= 1) return launch_plane_xor<1, STAGES>(a);
-  if (rb <= 2) return launch_plane_xor<2, STAGES>(a);
-  if (rb <= 3) return launch_plane_xor<3, STAGES>(a);
-  if (rb <= 4) return launch_plane_xor<4, STAGES>(a);
-  if (rb <= 6) return launch_plane_xor<6, STAGES>(a);
-  if (rb <= 8) return launch_plane_xor<8, STAGES>(a);
-  if (rb <= 12) return launch_plane_xor<12, STAGES>(a);
-  if (rb <= 16) return launch_plane_xor<16, STAGES>(a);
-  return launch_plane_xor<kXorMaxRB, STAGES>(a);
+  if (rb <= 1) return launch_plane_xor<1>(a);
+  if (rb <= 2) return launch_plane_xor<2>(a);
+  if (rb <= 3) return launch_plane_xor<3>(a);
+  if (rb <= 4) return launch_plane_xor<4>(a);
+  if (rb <= 6) return launch_plane_xor<6>(a);
+  if (rb <= 8) return launch_plane_xor<8>(a);
+  if (rb <= 12) return launch_plane_xor<12>(a);
+  if (rb <= 16) return launch_plane_xor<16>(a);
+  return launch_plane_xor<kXorMaxRB>(a);
 }
 
 // Row tiles of 16 output planes per pass (MB) for KS k-steps: the A
@@ -914,7 +913,7 @@ int gf256_xor_apply(const void* x, void* y, const void* masks, int64_t W,
   if (err != cudaSuccess) return err;
   if (W % 8192 || C < 1 || C > 128 || R < 1) return cudaErrorInvalidValue;
   if (W == 0) return cudaSuccess;
-  return gf256::dispatch_plane_xor<gf256::kXorStages>(
+  return gf256::dispatch_plane_xor(
       {x, y, masks, W, C, R, device, static_cast<cudaStream_t>(stream),
        nullptr});
 }
@@ -925,23 +924,22 @@ int gf256_xor3_apply(const void* x, void* y, const void* masks, int64_t W,
   if (err != cudaSuccess) return err;
   if (W % 32768 || C < 1 || C > 128 || R < 1) return cudaErrorInvalidValue;
   if (W == 0) return cudaSuccess;
-  return gf256::dispatch_plane_xor<gf256::kXor3Stages>(
+  return gf256::dispatch_plane_xor(
       {x, y, masks, W, C, R, device, static_cast<cudaStream_t>(stream),
        nullptr});
 }
 
-// Blocks per SM of the kernel that xor_apply (wide = 0) or xor3_apply
-// (wide = 1) launches for R output planes, from the occupancy calculator;
-// a negative cudaError_t if the query fails.
-int gf256_plane_xor_blocks(int R, int wide, int device) {
+// Blocks per SM of the kernel that xor_apply and xor3_apply launch for R
+// output planes, from the occupancy calculator; a negative cudaError_t if
+// the query fails.
+int gf256_plane_xor_blocks(int R, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -err;
   if (R < 1) return -cudaErrorInvalidValue;
   int per_sm = 0;
   const gf256::PlaneXor a{nullptr, nullptr, nullptr, 0, 1, R, device,
                           nullptr, &per_sm};
-  err = wide ? gf256::dispatch_plane_xor<gf256::kXor3Stages>(a)
-             : gf256::dispatch_plane_xor<gf256::kXorStages>(a);
+  err = gf256::dispatch_plane_xor(a);
   return err != cudaSuccess ? -err : per_sm;
 }
 

@@ -124,7 +124,7 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = [vp, vp, vp, ctypes.c_int64, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, vp]
                 fn.restype = ctypes.c_int
-            lib.gf256_plane_xor_blocks.argtypes = [ctypes.c_int] * 3
+            lib.gf256_plane_xor_blocks.argtypes = [ctypes.c_int] * 2
             lib.gf256_plane_xor_blocks.restype = ctypes.c_int
             lib.gf256_error_string.argtypes = [ctypes.c_int]
             lib.gf256_error_string.restype = ctypes.c_char_p
@@ -132,14 +132,14 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def xor_blocks_per_sm(r: int, formulation: str, device: int = 0) -> int:
-    """Blocks per SM of the kernel that ``xor`` or ``xor3`` launches for
+def xor_blocks_per_sm(r: int, device: int = 0) -> int:
+    """Blocks per SM of the kernel that ``xor`` and ``xor3`` launch for
     ``r`` output planes (the occupancy calculator's count; the grid is
     that many blocks per SM)."""
     lib = library()
-    n = lib.gf256_plane_xor_blocks(r, int(formulation == "xor3"), device)
+    n = lib.gf256_plane_xor_blocks(r, device)
     if n < 0:
-        raise RuntimeError(f"{formulation}_apply occupancy: CUDA error {-n} "
+        raise RuntimeError(f"plane_xor occupancy: CUDA error {-n} "
                            f"({lib.gf256_error_string(-n).decode()})")
     return n
 

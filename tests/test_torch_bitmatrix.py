@@ -9,8 +9,8 @@ At 16+4 the Pallas XOR kernels take about 20 s each to trace in
 interpret mode, so there the encode matrix meets Pallas ``xor`` and
 ``xor3`` and the decode mask meets Pallas ``mxu``; every port
 formulation is held against each Pallas result computed.  Likewise the
-XOR kernels' odd shapes meet Pallas at C <= 40 and, at C = 128, the
-port's own ``gf256._xor_matmul_planes``."""
+XOR kernels' odd shapes meet Pallas at C <= 40 and, everywhere, the
+JAX package's numpy XOR chains ``gf256._xor_matmul_planes``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +18,6 @@ import pytest
 import torch
 
 from glusterfs_tpu.ops import gf256, gf256_pallas
-from glusterfs_tpu_torch.ops import gf256 as port_gf256
 from glusterfs_tpu_torch.ops import gf256_cuda
 from tests.test_torch_cuda import XOR_EDGE_CASES, xor_edge_case
 
@@ -184,9 +183,10 @@ ODD_R = (8, 16, 24, 160)
 
 
 def _xor_planes_ref(abits, x):
-    """The port's ``gf256._xor_matmul_planes`` on plane-major (C, W)."""
+    """The JAX package's ``gf256._xor_matmul_planes`` on plane-major
+    (C, W)."""
     c, w = x.shape
-    y = port_gf256._xor_matmul_planes(
+    y = gf256._xor_matmul_planes(
         abits, x.reshape(c, w // 64, 64).transpose(1, 0, 2))
     return y.transpose(1, 0, 2).reshape(abits.shape[0], w)
 
@@ -208,7 +208,7 @@ def test_xor_forms_odd_shapes_match_pallas(r, c):
     """``xor`` and ``xor3`` on the CPU at R not a multiple of 16 and C not
     a multiple of 32: against Pallas ``xor`` (one 8 KiB tile) and
     ``xor3`` (32 KiB) in interpret mode where C <= 40, and against the
-    port's own XOR chains everywhere."""
+    JAX package's numpy XOR chains everywhere."""
     rng = np.random.default_rng(1000 * r + c)
     abits = rng.integers(0, 2, (r, c), dtype=np.uint8)
     x = rng.integers(0, 256, (c, W), dtype=np.uint8)
@@ -224,8 +224,8 @@ def test_xor_forms_odd_shapes_match_pallas(r, c):
 
 @pytest.mark.parametrize("case", XOR_EDGE_CASES)
 def test_xor_forms_edge_cases(case):
-    """The XOR kernels' edge cases on the CPU against the port's XOR
-    chains, and against Pallas ``xor`` (one 8 KiB tile) where the matrix
+    """The XOR kernels' edge cases on the CPU against the JAX package's
+    numpy XOR chains, and against Pallas ``xor`` (one 8 KiB tile) where the matrix
     is small (zero and single-one rows)."""
     abits, x = xor_edge_case(case)
     want = _xor_planes_ref(abits, x)

@@ -202,7 +202,7 @@ def xor_edge_case(case):
     an all-ones 160 x 128 matrix on 0xFF planes (and every other row one
     short), all-zero rows among random ones, single-one rows (a copy of
     one plane each), 300 output planes (several passes over each tile);
-    32 KiB planes.  The CPU tests hold the plain version to the same
+    32 KiB planes.  The CPU tests and chip_smoke.py use the same
     cases."""
     w = 32768
     rng = np.random.default_rng(11)
@@ -258,11 +258,15 @@ def test_plane_major_kernels_all_4p2_decode_masks_on_card():
             assert torch.equal(got, want), (form, rows)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("form,w,c,r", [
+# (kernel, W, C, R) that the XOR kernels' C entry points must refuse
+XOR_REFUSALS = [
     ("xor", 4096, 8, 8), ("xor", 8192 + 512, 8, 8), ("xor", 8192, 0, 8),
     ("xor", 8192, 129, 8), ("xor", 8192, 8, 0), ("xor3", 8192, 8, 8),
-    ("xor3", 32768 + 8192, 8, 8), ("xor3", 32768, 129, 8)])
+    ("xor3", 32768 + 8192, 8, 8), ("xor3", 32768, 129, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,w,c,r", XOR_REFUSALS)
 def test_xor_entry_points_refuse_what_the_tiling_cannot_cover(form, w, c,
                                                               r):
     """The C entry point returns cudaErrorInvalidValue (1) for a width
@@ -284,9 +288,8 @@ def test_xor_entry_points_refuse_what_the_tiling_cannot_cover(form, w, c,
 
 @pytest.mark.cuda
 def test_xor_blocks_per_sm_on_card():
-    """At least two blocks of either XOR kernel reside on an SM at every
-    row count up to 160 (the ring does not grow with C)."""
+    """At least two blocks of the XOR kernels' body reside on an SM at
+    every row count (the ring does not grow with C)."""
     _card()
-    for form in ("xor", "xor3"):
-        for r in (8, 48, 96, 160, 300):
-            assert gf256_cuda.xor_blocks_per_sm(r, form) >= 2, (form, r)
+    for r in (8, 48, 96, 160, 300):
+        assert gf256_cuda.xor_blocks_per_sm(r) >= 2, r
