@@ -13,8 +13,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2. each of the four fused codec kernels against its plain PyTorch
    version on the card, byte-exact: 4+2 (all 15 decode masks), 8+4 and
    16+4 at 256 MiB of stripe data (the batching codec's largest batch),
-   and unaligned stripe counts 1, 3, 127, 129; with each kernel's time,
-   the time of a device copy moving the same bytes, and its bound;
+   and the card tests' stripe counts and configurations
+   (``FUSED_STRIPES``, ``FUSED_CONFIGS``: partial tiles, k = 1, 3, 5,
+   16+8 with its two passes, a grid that walks several tiles); with each
+   kernel's time, the time of a device copy moving the same bytes, and
+   its bound;
 3. the three plane-major kernels (``xor_apply``, ``xor3_apply``,
    ``mxu_apply``) the same way: 4+2, 8+4 and 16+4 with the encode
    matrix and a decode mask at 256 MiB of plane data, every 4+2 decode
@@ -42,9 +45,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 7. ``served-2x(4+2)-mma``: a distributed-disperse volume, one
    ``cluster/distribute`` over two 4+2 groups on ``cpu-extensions
    cuda-mma`` (the tensor-core kernel), the same writes, read back
-   healthy and with 2 bricks of each group down.
+   healthy and with 2 bricks of each group down;
+8. ``served-8+4``: a non-systematic 8+4 disperse volume (12 bricks,
+   ``cpu-extensions auto``), the same writes, read back healthy and with
+   4 bricks down (fused encode and decode at k = 8).
 
-The launch counters are set to 0 just before each path (phases 4-7)
+The launch counters are set to 0 just before each path (phases 4-8)
 and read just after it; a kernel of the path that was never launched
 fails the run.  The line before the last is the ``kernels`` summary,
 then the card's name and power limit, and the last line
@@ -71,8 +77,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from glusterfs_tpu_torch.ops import gf256_cuda as gc  # noqa: E402
-from tests.test_torch_cuda import (XOR_EDGE_CASES, XOR_REFUSALS,  # noqa: E402
-                                   XOR_WIDTHS, xor_edge_case)
+from tests.test_torch_cuda import (FUSED_CONFIGS,  # noqa: E402
+                                   FUSED_STRIPES, XOR_EDGE_CASES,
+                                   XOR_REFUSALS, XOR_WIDTHS, xor_edge_case)
 
 MiB = 1 << 20
 SMALL_FILES = 64  # concurrent 1 MiB writes (the north-star writev)
@@ -100,8 +107,7 @@ PEAK_INT8_OPS_S = 1979e12
 LOP3_PER_CLK_SM = 64
 # the port's kernels are the functions of namespace gf256 in
 # csrc/gf256_kernels.cu (profiler names are demangled)
-CODEC_SYMBOLS = ("gf256::xor_apply<", "gf256::plane_xor<",
-                 "gf256::mxu_apply<")
+CODEC_SYMBOLS = ("gf256::layout_xor<", "gf256::mxu_apply<")
 
 REPLACES = {
     "fused_encode": "glusterfs_tpu/ops/gf256_pallas.py:342",
@@ -271,15 +277,16 @@ def check(g, name, k, r, s, rows=None, wanted=None, ops_s=None):
 def phase_kernels(card: str, ops_s: float) -> dict:
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    for k, r in CONFIGS:  # unaligned stripe counts, every kernel
+    for k, r in FUSED_CONFIGS:  # the card tests' tails, every kernel
         n = k + r
         rows = tuple(range(r, n))
         wanted = tuple(range(r))
-        for s in STRIPES:
+        for s in FUSED_STRIPES:
             for name in gc.FUSED:
                 check(g, name, k, r, s, rows, wanted)
-    emit("kernels-unaligned", ok=True, stripes=list(STRIPES),
-         configs=[f"{k}+{r}" for k, r in CONFIGS], kernels=list(gc.FUSED))
+    emit("kernels-unaligned", ok=True, stripes=FUSED_STRIPES,
+         configs=[f"{k}+{r}" for k, r in FUSED_CONFIGS],
+         kernels=list(gc.FUSED))
     timed = {}
     for k, r in CONFIGS:
         n = k + r
@@ -568,9 +575,10 @@ def _payload(g, nbytes: int) -> bytes:
                          device=g.device, generator=g).cpu().numpy().tobytes()
 
 
-async def _mount(base: Path, options: dict, fresh: bool, groups: int):
-    """Mount the volume; returns the client and its disperse layers
-    (one per group)."""
+async def _mount(base: Path, options: dict, fresh: bool, groups: int,
+                 n: int, r: int):
+    """Mount the volume of ``groups`` (n, r) disperse groups; returns the
+    client and its disperse layers (one per group)."""
     from glusterfs_tpu_torch.api.glfs import Client
     from glusterfs_tpu_torch.core.graph import Graph
     from glusterfs_tpu_torch.utils.volspec import ec_volfile
@@ -578,7 +586,7 @@ async def _mount(base: Path, options: dict, fresh: bool, groups: int):
     if fresh:
         shutil.rmtree(base, ignore_errors=True)
         base.mkdir(parents=True)
-    c = Client(Graph.construct(ec_volfile(base, 6, 2, groups=groups,
+    c = Client(Graph.construct(ec_volfile(base, n, r, groups=groups,
                                           options={
         "cpu-extensions": "auto", "stripe-cache": "on",
         "stripe-cache-window": 2000, **options})))
@@ -626,14 +634,15 @@ def _since(before: dict) -> dict:
 
 
 async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
-                 groups: int = 1) -> dict:
+                 groups: int = 1, n: int = 6, r: int = 2) -> dict:
     """Write 64 concurrent 1 MiB files and a 1 GiB file in 64 MiB
-    writes (on a systematic volume also an unaligned overwrite),
-    read everything back; then spoil the ``down`` bricks (global
-    indices: brick i is child i % 6 of group i // 6), remount with them
-    down and read everything again."""
+    writes (on a systematic volume also an unaligned overwrite) to
+    ``groups`` (n, r) disperse groups, read everything back; then spoil
+    the ``down`` bricks (global indices: brick i is child i % n of group
+    i // n), remount with them down and read everything again."""
     backend = options.get("cpu-extensions", "auto").replace("auto", "cuda")
-    c, ecs = await _mount(base, options, fresh=True, groups=groups)
+    c, ecs = await _mount(base, options, fresh=True, groups=groups, n=n,
+                          r=r)
     try:
         files = {f"/f{i}": _payload(g, MiB) for i in range(SMALL_FILES)}
         big = _payload(g, BIG_BYTES)
@@ -673,15 +682,16 @@ async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
                                  f"not {backend}")
     # which group each small file landed on (its fragments on the
     # group's first brick)
-    placed = [sum((base / f"brick{gi * 6}" / f"f{i}").is_file()
+    placed = [sum((base / f"brick{gi * n}" / f"f{i}").is_file()
                   for i in range(SMALL_FILES)) for gi in range(groups)]
     if groups > 1 and (min(placed) < 1 or sum(placed) != SMALL_FILES):
         raise AssertionError(f"small files per group: {placed}")
     _spoil(base, down)
-    c, ecs = await _mount(base, options, fresh=False, groups=groups)
+    c, ecs = await _mount(base, options, fresh=False, groups=groups, n=n,
+                          r=r)
     try:
         for i in down:
-            ecs[i // 6].set_child_up(i % 6, False)
+            ecs[i // n].set_child_up(i % n, False)
         at_degraded = dict(gc.LAUNCHES)
         degraded = await _read_all(c, files)
         on_degraded = _since(at_degraded)
@@ -690,7 +700,7 @@ async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
         await c.unmount()
     return {"write_mib_s": write, "healthy_read_mib_s": healthy,
             "degraded_read_mib_s": degraded, "bricks_down": list(down),
-            "groups": groups, "small_files_per_group": placed,
+            "config": f"{n - r}+{r}", "groups": groups, "small_files_per_group": placed,
             "write_path": write_path, "codec": stats,
             "degraded_codec": dstats, "launches_write": on_write,
             "launches_healthy_read": on_read,
@@ -717,6 +727,22 @@ async def served_dist_mma(base: Path, g) -> dict:
         if res[phase]["mxu_apply"] < 1:
             raise AssertionError(f"mxu_apply not launched on {phase}: "
                                  f"{res[phase]}")
+    return res
+
+
+async def served_8p4(base: Path, g) -> dict:
+    """A non-systematic 8+4 volume (``BASELINE.json`` config 2): fused
+    encode on the write, fused decode on the healthy read and, with
+    bricks 0, 4, 8 and 11 down, on the degraded read."""
+    res = await _serve(base, g, {"systematic": "off"}, down=(0, 4, 8, 11),
+                       n=12, r=4)
+    for name, phases in (("fused_encode", ("launches_write",)),
+                         ("fused_decode", ("launches_healthy_read",
+                                           "launches_degraded_read"))):
+        for phase in phases:
+            if res[phase][name] < 1:
+                raise AssertionError(f"{name} not launched on {phase}: "
+                                     f"{res[phase]}")
     return res
 
 
@@ -778,7 +804,7 @@ def main() -> int:
          device=torch.cuda.get_device_name(0),
          mxu_resources=resources(lib, r"mxu_applyILi(\d)ELi(\d)E",
                                  "KS={},MB={}"),
-         xor_resources=resources(lib, r"plane_xorILi(\d+)E", "RB={}"),
+         xor_resources=resources(lib, r"layout_xorILi(\d+)E", "RB={}"),
          xor_blocks_per_sm={r: gc.xor_blocks_per_sm(r)
                             for r in (8, 32, 48, 64, 96, 128, 160)})
     ops_s = peak_ops_s()
@@ -796,6 +822,8 @@ def main() -> int:
                       base / "systematic", g, card, profile)
         mma = served("served-2x(4+2)-mma", served_dist_mma, base / "dist",
                      g, card, profile)
+        wide = served("served-8+4", served_8p4, base / "wide", g, card,
+                      profile)
     finally:
         shutil.rmtree(base, ignore_errors=True)
     path = {"fused_encode": ("served-4+2", plain),
@@ -820,6 +848,10 @@ def main() -> int:
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                "copy_ms": t["copy_ms"], "path": phase, "shape": shape}
+        if name in gc.FUSED:  # launches on each served path
+            row["launches_by_path"] = {"served-4+2": plain[name],
+                                       "served-4+2-systematic": syst[name],
+                                       "served-8+4": wide[name]}
         if name == "mxu_apply":
             row["product_ms"] = t["product_ms"]
             row["product_w"] = t["product_w"]

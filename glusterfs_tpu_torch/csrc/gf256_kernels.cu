@@ -36,33 +36,34 @@
 // about R*C/2 16-byte XORs per stripe.  C <= 128 holds because the masks
 // carry 128 bits (ops/gf256_cuda.py masks_of).
 //
-// The four fused kernels (template xor_apply): a block stages T = 8
-// stripes (word columns) in shared memory with coalesced 16-byte loads
-// (the tile of one fragment is contiguous in both wire layouts), then
-// each group of 32 threads takes one output plane at a time across the
-// tile's 8 columns x 4 16-byte lanes, so the mask loop is uniform across
-// each warp and the shared-memory reads hit no bank twice (a 64-byte pad
-// per staged column puts neighbouring columns on opposite halves of the
-// banks).  Stores are 64-byte runs, whole sectors.  Any stripe count
-// works: the last tile is masked.
-//
-// xor_apply and xor3_apply (plane-major in and out) have a body of their
-// own, plane_xor.  The fused template reads the operand of every XOR
-// term from shared memory and uses it once; at 16+4 those reads alone
-// take 3.1x the byte bound at the SM's shared-memory rate, and the
-// template stages its whole tile before its first XOR.  plane_xor keeps
-// its outputs in registers and reads shared memory once per output plane
-// and 4 input planes:
-// - A persistent grid (sized to the resident blocks) walks 512-byte
-//   column tiles; each thread of a warp owns one 16-byte lane of every
-//   plane row of the tile.
+// All six launch one body, layout_xor<RB>; the entry points differ only
+// in the layout pair they pass (and xor_apply and xor3_apply in the
+// widths they take).  In each layout plane p of stripe s lies at
+// (p/8)*group + (p%8)*plane + s*stripe bytes (struct Strides), so the
+// body addresses all three alike.  An earlier fused body read the operand
+// of every XOR term from shared memory and used it once (at 16+4 those
+// reads alone took 3.1x the byte bound at the SM's shared-memory rate),
+// walked each mask bit by bit, and staged a whole synchronous tile before
+// its first XOR.  layout_xor keeps its outputs in registers and reads
+// shared memory once per output plane and 4 input planes:
+// - A persistent grid (sized to the resident blocks) walks tiles of 8
+//   stripes (512 bytes of each plane row in plane-major order); each
+//   thread of a warp owns one 16-byte lane of every plane of the tile:
+//   stripe lane/4, quarter lane%4.
 // - Each of the 8 warps of a block holds RB output planes, one uint4
 //   accumulator each per thread (RB = 1..20, the fewest that cover R in
 //   one pass; more than 160 planes take several passes over a tile).
-// - Input planes stream through a ring of 6 shared-memory slots of
-//   16 planes x 512 bytes (cp.async; a barrier when a slot has landed and
-//   one when its tables are written), so the ring does not grow with C
-//   and 2-3 blocks reside at any C.
+// - Input planes stream through a ring of 6 shared-memory slots of 16
+//   planes x 8 stripes (cp.async; a barrier when a slot has landed and one
+//   when its tables are written), so the ring does not grow with C and 2
+//   blocks reside at any C.  Staging threads follow the input's own order,
+//   so each warp loads 512 contiguous bytes: 8 planes of one stripe
+//   (stripe-major, where the chunk's 16 planes of a stripe are one run of
+//   1 KiB), one chunk of one stripe (fragment-major, where a fragment's 8
+//   stripes are one run of 4 KiB) or 8 stripes of one plane
+//   (plane-major).  Each thread computes its slot index from its address;
+//   the 16-byte lanes of odd planes sit at lane ^ 4, so the two planes of
+//   a quarter warp's store land on distinct banks in all three orders.
 // - Four-plane tables: after each slot lands, the block writes, for each
 //   group of 4 staged planes and each lane, the 16 XORs of the group's
 //   subsets (entry e = XOR of the planes whose bit is set in e; two warps
@@ -73,11 +74,21 @@
 //   per pair.  The entries' byte offsets are made from the masks once per
 //   launch, 16 bits each, and read 8 at a time; they are the same for all
 //   32 lanes of a warp.
-// xor_apply and xor3_apply launch the same kernel; they differ only in
-// the widths they take.  The TPU's xor3 filled whole vregs with (256,
-// 128) row tiles where xor used (1, W) row slices; on Hopper "more bytes
-// in flight per step" is more slots in flight, not a larger synchronous
-// tile, and 6 slots were no slower than 4 for either.
+// - Stores go straight from registers: a warp's store of one output plane
+//   is 8 runs of 64 bytes in the wire layouts (one run of 512 in
+//   plane-major order), whole sectors.
+// - Tails: any stripe count works.  Stripes past S in the last tile are
+//   never loaded (in fragment-major order they would be the next
+//   fragment's bytes) and never stored; their lanes compute on stale slot
+//   bytes, and the tables are per lane, so those bytes stay there.
+//   Planes past C in the last ring slot are stale too; no mask bit
+//   selects them.
+// The layout pair is a runtime argument, uniform and used only in address
+// arithmetic: one instantiation per RB serves all six kernels.  The TPU's
+// xor3 filled whole vregs with (256, 128) row tiles where xor used (1, W)
+// row slices; on Hopper "more bytes in flight per step" is more slots in
+// flight, not a larger synchronous tile, and 6 slots were no slower than 4
+// for either.
 //
 // mxu_apply, the tensor-core kernel.  y = (abits . unpack(x)) mod 2,
 // packed: the TPU's unpack -> int8 matmul -> & 1 -> pack, with the
@@ -162,16 +173,21 @@ constexpr int kChunk = 512;  // bytes per fragment chunk (8 planes)
 constexpr int kThreads = 256;
 constexpr int kMmaTile = 256;  // bytes of each plane row per mxu tile
 
-enum Layout : int { kStripeMajor = 0, kFragmentMajor = 1 };
+enum Layout : int { kStripeMajor = 0, kFragmentMajor = 1, kPlaneMajor = 2 };
 
-// Byte offset of plane p of stripe s in a buffer of `planes` planes per
-// stripe and S stripes.
-template <int L>
-__device__ __forceinline__ int64_t plane_offset(int64_t s, int p, int planes,
-                                                int64_t S) {
-  if (L == kStripeMajor) return (s * planes + p) * kWord;
-  return static_cast<int64_t>(p >> 3) * S * kChunk + s * kChunk +
-         (p & 7) * kWord;
+// Plane p of stripe s of a buffer lies at (p/8)*group + (p%8)*plane +
+// s*stripe bytes in every layout.
+struct Strides {
+  int64_t group, plane, stripe;
+};
+
+// The strides of layout l for S stripes of `planes` planes each.
+inline Strides strides_of(Layout l, int64_t S, int planes) {
+  if (l == kStripeMajor) {
+    return {8 * kWord, kWord, static_cast<int64_t>(planes) * kWord};
+  }
+  if (l == kFragmentMajor) return {S * kChunk, kWord, kChunk};
+  return {S * kChunk, S * kWord, kWord};  // plane-major, W = S*64
 }
 
 __device__ __forceinline__ void xor_into(uint4& acc, const uint4& v) {
@@ -179,88 +195,6 @@ __device__ __forceinline__ void xor_into(uint4& acc, const uint4& v) {
   acc.y ^= v.y;
   acc.z ^= v.z;
   acc.w ^= v.w;
-}
-
-// T: stripes (word columns) per block.
-template <int IN, int OUT, int T>
-__global__ void __launch_bounds__(kThreads)
-    xor_apply(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
-              const unsigned long long* __restrict__ masks, int64_t S, int C,
-              int R) {
-  extern __shared__ uint4 tile[];  // T x (C*4 + 4 pad) 16-byte lanes
-  const int stride = C * 4 + 4;
-  const int per_stripe = C * 4;
-  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * T;
-
-  // Stage the tile.  Element e walks global memory contiguously: in
-  // stripe-major order the tile is one run; in fragment-major order one
-  // run per fragment (T chunks of 32 lanes).
-  for (int e = threadIdx.x; e < T * per_stripe; e += kThreads) {
-    int t, p, q;
-    if (IN == kStripeMajor) {
-      t = e / per_stripe;
-      const int rem = e - t * per_stripe;
-      p = rem >> 2;
-      q = rem & 3;
-    } else {
-      const int f = e / (T * 32);
-      const int rem = e - f * (T * 32);
-      t = rem >> 5;
-      p = f * 8 + ((rem & 31) >> 2);
-      q = rem & 3;
-    }
-    const int64_t s = s0 + t;
-    if (s < S) {
-      tile[t * stride + p * 4 + q] = *reinterpret_cast<const uint4*>(
-          x + plane_offset<IN>(s, p, C, S) + q * 16);
-    }
-  }
-  __syncthreads();
-
-  constexpr int kLanes = T * 4;               // threads on one output plane
-  constexpr int kPlanes = kThreads / kLanes;  // output planes in flight
-  const int group = threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  const int t = lane >> 2;
-  const int q = lane & 3;
-  const int64_t s = s0 + t;
-  const uint4* row = tile + t * stride + q;
-  for (int i = group; i < R; i += kPlanes) {
-    unsigned long long m0 = masks[2 * i];
-    unsigned long long m1 = masks[2 * i + 1];
-    uint4 acc = make_uint4(0u, 0u, 0u, 0u);
-    while (m0) {
-      const int j = __ffsll(static_cast<long long>(m0)) - 1;
-      m0 &= m0 - 1;
-      xor_into(acc, row[j * 4]);
-    }
-    while (m1) {
-      const int j = 64 + __ffsll(static_cast<long long>(m1)) - 1;
-      m1 &= m1 - 1;
-      xor_into(acc, row[j * 4]);
-    }
-    if (s < S) {
-      *reinterpret_cast<uint4*>(y + plane_offset<OUT>(s, i, R, S) + q * 16) =
-          acc;
-    }
-  }
-}
-
-template <int IN, int OUT, int T>
-cudaError_t launch_xor(const void* x, void* y, const void* masks, int64_t S,
-                       int C, int R, cudaStream_t stream) {
-  if (S == 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(T) * (C * 4 + 4) * sizeof(uint4);
-  cudaError_t err = cudaFuncSetAttribute(
-      xor_apply<IN, OUT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int64_t blocks = (S + T - 1) / T;
-  xor_apply<IN, OUT, T><<<static_cast<unsigned>(blocks), kThreads, smem,
-                          stream>>>(
-      static_cast<const uint8_t*>(x), static_cast<uint8_t*>(y),
-      static_cast<const unsigned long long*>(masks), S, C, R);
-  return cudaGetLastError();
 }
 
 // d = a . b (+ c) over one m16n8k32 tile: A 16x32 s8 (row), B 32x8 s8
@@ -307,9 +241,8 @@ __device__ __forceinline__ void cp_async_wait() {
 
 constexpr int kStages = 3;  // column tiles in the shared-memory ring
 
-// plane_xor, the body of xor_apply and xor3_apply (see the note at the
-// top).
-constexpr int kXorTile = 512;   // bytes of each plane row per column tile
+// layout_xor, the body of the six XOR kernels (see the note at the top).
+constexpr int kXorStripes = 8;  // stripes per tile (512 bytes of a plane row)
 constexpr int kXorChunk = 16;   // input planes per ring slot
 constexpr int kXorGroup = 4;    // input planes per table (16 entries)
 constexpr int kXorGroups = kXorChunk / kXorGroup;  // tables per slot
@@ -326,11 +259,35 @@ __host__ __device__ constexpr int xor_rows_padded(int rb) {
   return (rb + 7) / 8 * 8;
 }
 
+// Element e (0..511) of a ring slot's staging, in the input's own order:
+// its plane pl (0..15) of the chunk and its stripe t (0..7) of the tile;
+// its quarter is e % 4 in every layout.
+__device__ __forceinline__ void xor_stage_coords(Layout in, int e, int& pl,
+                                                 int& t) {
+  if (in == kStripeMajor) {  // stripe, plane, quarter
+    t = e >> 6;
+    pl = (e >> 2) & 15;
+  } else if (in == kFragmentMajor) {  // fragment, stripe, plane, quarter
+    t = (e >> 5) & 7;
+    pl = (e >> 8) << 3 | ((e >> 2) & 7);
+  } else {  // plane, stripe, quarter
+    t = (e >> 2) & 7;
+    pl = e >> 5;
+  }
+}
+
+// The uint4 index in a ring slot of plane pl's 16-byte lane l (l = 4t +
+// quarter): odd planes at l ^ 4 (see the note at the top).
+__device__ __forceinline__ int xor_slot_index(int pl, int l) {
+  return pl * 32 + (l ^ ((pl & 1) << 2));
+}
+
 template <int RB>
 __global__ void __launch_bounds__(kThreads, 2)
-    plane_xor(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
-              const unsigned long long* __restrict__ masks, int64_t W, int C,
-              int R, int passes) {
+    layout_xor(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
+               const unsigned long long* __restrict__ masks, int64_t S,
+               int C, int R, int passes, Layout in, Strides src,
+               Strides dst) {
   constexpr int kRBP = xor_rows_padded(RB);
   // kXorStages ring slots, kXorGroups tables, then the table offsets
   extern __shared__ __align__(16) uint4 ring[];
@@ -363,9 +320,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     tab[(e >> 5) * kXorTable + (e & 31)] = make_uint4(0u, 0u, 0u, 0u);
   }
 
-  // A block's steps: its column tiles, each in `passes` passes of
-  // `chunks` ring slots.
-  const int64_t tiles = W / kXorTile;
+  // A block's steps: its tiles, each in `passes` passes of `chunks` ring
+  // slots.
+  const int64_t tiles = (S + kXorStripes - 1) / kXorStripes;
   const int chunks = (C + kXorChunk - 1) / kXorChunk;
   const int64_t steps =
       tiles > blockIdx.x
@@ -375,14 +332,22 @@ __global__ void __launch_bounds__(kThreads, 2)
   int st_chunk = 0, st_pass = 0;
   auto stage = [&](int slot) {
     if (st_step < steps) {
-      const uint8_t* src = x + st_tile * kXorTile +
-                           static_cast<int64_t>(st_chunk) * kXorChunk * W;
-      uint4* dst = ring + slot * kXorSlot;
+      // planes 16c.. of stripes 8t..: chunk c is fragments 2c and 2c + 1
+      const uint8_t* base = x + st_tile * kXorStripes * src.stripe +
+                            st_chunk * 2 * src.group;
+      const int64_t stripes = S - st_tile * kXorStripes;  // left in S
+      const int planes = C - st_chunk * kXorChunk;        // left in C
+      uint4* to = ring + slot * kXorSlot;
 #pragma unroll
       for (int h = 0; h < kXorSlot / kThreads; ++h) {
-        const int e = threadIdx.x + h * kThreads;  // plane e / 32, lane e % 32
-        if (st_chunk * kXorChunk + (e >> 5) < C) {
-          cp_async16(dst + e, src + (e >> 5) * W + (e & 31) * 16);
+        const int e = threadIdx.x + h * kThreads;
+        int pl, t;
+        xor_stage_coords(in, e, pl, t);
+        if (pl < planes && t < stripes) {
+          const int q = e & 3;
+          cp_async16(to + xor_slot_index(pl, 4 * t + q),
+                     base + (pl >> 3) * src.group + (pl & 7) * src.plane +
+                         t * src.stripe + q * 16);
         }
       }
       if (++st_chunk == chunks) {
@@ -415,9 +380,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     // slot with bit q of e set; warps 2g and 2g + 1 fill entries 1-7 and
     // 8-15 (planes past C hold stale bytes; no mask bit selects them).
     if (chunk * kXorChunk + grp * kXorGroup < C) {
-      const uint4* xs = ring + slot * kXorSlot + grp * kXorGroup * 32 + lane;
+      const uint4* xs = ring + slot * kXorSlot + grp * kXorGroup * 32;
+      const uint4* even = xs + lane;       // planes 4g and 4g + 2
+      const uint4* odd = xs + (lane ^ 4);  // 4g + 1 and 4g + 3
       uint4* t = tab + grp * kXorTable + lane;
-      const uint4 v0 = xs[0], v1 = xs[32], v2 = xs[64];
+      const uint4 v0 = even[0], v1 = odd[32], v2 = even[64];
       uint4 v01 = v0;
       xor_into(v01, v1);
       auto put = [&](int e, uint4 a, const uint4& b) {  // entry e = a ^ b
@@ -433,7 +400,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         put(6, v2, v1);
         put(7, v2, v01);
       } else {
-        const uint4 v3 = xs[96];
+        const uint4 v3 = odd[96];
         t[8 * 32] = v3;
         put(9, v3, v0);
         put(10, v3, v1);
@@ -473,12 +440,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     if (++chunk == chunks) {  // the pass over this tile is done
       chunk = 0;
-      uint8_t* yt = y + tile * kXorTile + lane * 16;
+      const int64_t s = tile * kXorStripes + (lane >> 2);
+      uint8_t* ys = y + s * dst.stripe + (lane & 3) * 16;
 #pragma unroll
       for (int i = 0; i < RB; ++i) {
-        if (b * RB + i < R) {
-          *reinterpret_cast<uint4*>(
-              yt + static_cast<int64_t>(b * RB + i) * W) = acc[i];
+        const int o = b * RB + i;
+        if (o < R && s < S) {
+          *reinterpret_cast<uint4*>(ys + (o >> 3) * dst.group +
+                                    (o & 7) * dst.plane) = acc[i];
         }
         acc[i] = make_uint4(0u, 0u, 0u, 0u);
       }
@@ -492,21 +461,24 @@ __global__ void __launch_bounds__(kThreads, 2)
   cp_async_wait<0>();
 }
 
-// One plane_xor call; with `per_sm` set, only the blocks per SM that the
-// occupancy calculator gives for it.
-struct PlaneXor {
+// One layout_xor call: S stripes of C input and R output planes; with
+// `per_sm` set, only the blocks per SM that the occupancy calculator
+// gives for it.
+struct XorCall {
   const void* x;
   void* y;
   const void* masks;
-  int64_t W;
-  int C, R, device;
+  int64_t S;
+  int C, R;
+  Layout in, out;
+  int device;
   cudaStream_t stream;
   int* per_sm;
 };
 
 // The grid is sized to the blocks that fit on the card at once.
 template <int RB>
-cudaError_t launch_plane_xor(const PlaneXor& a) {
+cudaError_t launch_xor(const XorCall& a) {
   const int passes = (a.R + kXorWarps * RB - 1) / (kXorWarps * RB);
   const size_t smem =
       (static_cast<size_t>(kXorStages) * kXorSlot + kXorGroups * kXorTable) *
@@ -514,7 +486,7 @@ cudaError_t launch_plane_xor(const PlaneXor& a) {
       static_cast<size_t>(passes) * kXorWarps * kXorMaskGroups *
           xor_rows_padded(RB) * sizeof(uint16_t);
   cudaError_t err = cudaFuncSetAttribute(
-      plane_xor<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      layout_xor<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
@@ -522,37 +494,51 @@ cudaError_t launch_plane_xor(const PlaneXor& a) {
                                a.device);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, plane_xor<RB>, kThreads, smem);
+      &per_sm, layout_xor<RB>, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (a.per_sm) {
     *a.per_sm = per_sm;
     return cudaSuccess;
   }
-  const int64_t tiles = a.W / kXorTile;
+  const int64_t tiles = (a.S + kXorStripes - 1) / kXorStripes;
   const int64_t resident =
       static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const int64_t blocks = tiles < resident ? tiles : resident;
-  plane_xor<RB>
+  layout_xor<RB>
       <<<static_cast<unsigned>(blocks), kThreads, smem, a.stream>>>(
           static_cast<const uint8_t*>(a.x), static_cast<uint8_t*>(a.y),
-          static_cast<const unsigned long long*>(a.masks), a.W, a.C, a.R,
-          passes);
+          static_cast<const unsigned long long*>(a.masks), a.S, a.C, a.R,
+          passes, a.in, strides_of(a.in, a.S, a.C),
+          strides_of(a.out, a.S, a.R));
   return cudaGetLastError();
 }
 
 // RB: the fewest output planes per warp, of those built, that cover R in
 // one pass; past 160 planes, kXorMaxRB in several passes.
-cudaError_t dispatch_plane_xor(const PlaneXor& a) {
+cudaError_t dispatch_xor(const XorCall& a) {
   const int rb = (a.R + kXorWarps - 1) / kXorWarps;
-  if (rb <= 1) return launch_plane_xor<1>(a);
-  if (rb <= 2) return launch_plane_xor<2>(a);
-  if (rb <= 3) return launch_plane_xor<3>(a);
-  if (rb <= 4) return launch_plane_xor<4>(a);
-  if (rb <= 6) return launch_plane_xor<6>(a);
-  if (rb <= 8) return launch_plane_xor<8>(a);
-  if (rb <= 12) return launch_plane_xor<12>(a);
-  if (rb <= 16) return launch_plane_xor<16>(a);
-  return launch_plane_xor<kXorMaxRB>(a);
+  if (rb <= 1) return launch_xor<1>(a);
+  if (rb <= 2) return launch_xor<2>(a);
+  if (rb <= 3) return launch_xor<3>(a);
+  if (rb <= 4) return launch_xor<4>(a);
+  if (rb <= 6) return launch_xor<6>(a);
+  if (rb <= 8) return launch_xor<8>(a);
+  if (rb <= 12) return launch_xor<12>(a);
+  if (rb <= 16) return launch_xor<16>(a);
+  return launch_xor<kXorMaxRB>(a);
+}
+
+// One launch of the XOR body from a C entry point.
+int xor_entry(const void* x, void* y, const void* masks, int64_t S, int C,
+              int R, Layout in, Layout out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (S < 0 || C < 1 || C > kXorPlanes || R < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if (S == 0) return cudaSuccess;
+  return dispatch_xor({x, y, masks, S, C, R, in, out, device,
+                       static_cast<cudaStream_t>(stream), nullptr});
 }
 
 // Row tiles of 16 output planes per pass (MB) for KS k-steps: the A
@@ -866,80 +852,67 @@ cudaError_t dispatch_mxu(const void* x, void* y, const void* abits, int64_t W,
 }  // namespace gf256
 
 using gf256::kFragmentMajor;
+using gf256::kPlaneMajor;
 using gf256::kStripeMajor;
+using gf256::xor_entry;
 
 // Every entry point: x and y are device pointers (16-byte aligned), the
 // operand is the bit-matrix, `device` the card's index and `stream` a
 // cudaStream_t.  S counts stripes (fused kernels), W bytes of each plane
-// row (plane-major kernels).  Returns the cudaError_t of the launch.
+// row (plane-major kernels).  Returns the cudaError_t of the launch;
+// cudaErrorInvalidValue, with nothing launched, for C outside 1..128, R
+// below 1 or a width the kernel's tiling cannot cover.
 extern "C" {
 
 int gf256_fused_encode(const void* x, void* y, const void* masks, int64_t S,
                        int C, int R, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  return gf256::launch_xor<kStripeMajor, kFragmentMajor, 8>(
-      x, y, masks, S, C, R, static_cast<cudaStream_t>(stream));
+  return xor_entry(x, y, masks, S, C, R, kStripeMajor, kFragmentMajor,
+                   device, stream);
 }
 
 int gf256_fused_decode(const void* x, void* y, const void* masks, int64_t S,
                        int C, int R, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  return gf256::launch_xor<kFragmentMajor, kStripeMajor, 8>(
-      x, y, masks, S, C, R, static_cast<cudaStream_t>(stream));
+  return xor_entry(x, y, masks, S, C, R, kFragmentMajor, kStripeMajor,
+                   device, stream);
 }
 
 int gf256_fused_parity(const void* x, void* y, const void* masks, int64_t S,
                        int C, int R, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  return gf256::launch_xor<kStripeMajor, kFragmentMajor, 8>(
-      x, y, masks, S, C, R, static_cast<cudaStream_t>(stream));
+  return xor_entry(x, y, masks, S, C, R, kStripeMajor, kFragmentMajor,
+                   device, stream);
 }
 
 int gf256_fused_reconstruct(const void* x, void* y, const void* masks,
                             int64_t S, int C, int R, int device,
                             void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  return gf256::launch_xor<kFragmentMajor, kFragmentMajor, 8>(
-      x, y, masks, S, C, R, static_cast<cudaStream_t>(stream));
+  return xor_entry(x, y, masks, S, C, R, kFragmentMajor, kFragmentMajor,
+                   device, stream);
 }
 
 int gf256_xor_apply(const void* x, void* y, const void* masks, int64_t W,
                     int C, int R, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (W % 8192 || C < 1 || C > 128 || R < 1) return cudaErrorInvalidValue;
-  if (W == 0) return cudaSuccess;
-  return gf256::dispatch_plane_xor(
-      {x, y, masks, W, C, R, device, static_cast<cudaStream_t>(stream),
-       nullptr});
+  if (W % 8192) return cudaErrorInvalidValue;
+  return xor_entry(x, y, masks, W / gf256::kWord, C, R, kPlaneMajor,
+                   kPlaneMajor, device, stream);
 }
 
 int gf256_xor3_apply(const void* x, void* y, const void* masks, int64_t W,
                      int C, int R, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (W % 32768 || C < 1 || C > 128 || R < 1) return cudaErrorInvalidValue;
-  if (W == 0) return cudaSuccess;
-  return gf256::dispatch_plane_xor(
-      {x, y, masks, W, C, R, device, static_cast<cudaStream_t>(stream),
-       nullptr});
+  if (W % 32768) return cudaErrorInvalidValue;
+  return xor_entry(x, y, masks, W / gf256::kWord, C, R, kPlaneMajor,
+                   kPlaneMajor, device, stream);
 }
 
-// Blocks per SM of the kernel that xor_apply and xor3_apply launch for R
-// output planes, from the occupancy calculator; a negative cudaError_t if
-// the query fails.
-int gf256_plane_xor_blocks(int R, int device) {
+// Blocks per SM of the XOR kernels' body for R output planes, from the
+// occupancy calculator; a negative cudaError_t if the query fails.
+int gf256_xor_blocks(int R, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -err;
   if (R < 1) return -cudaErrorInvalidValue;
   int per_sm = 0;
-  const gf256::PlaneXor a{nullptr, nullptr, nullptr, 0, 1, R, device,
-                          nullptr, &per_sm};
-  err = gf256::dispatch_plane_xor(a);
+  const gf256::XorCall a{nullptr,     nullptr,     nullptr, 0,       1, R,
+                         kPlaneMajor, kPlaneMajor, device,  nullptr, &per_sm};
+  err = gf256::dispatch_xor(a);
   return err != cudaSuccess ? -err : per_sm;
 }
 

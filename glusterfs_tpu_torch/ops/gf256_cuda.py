@@ -16,9 +16,12 @@ wrapper                layouts (in -> out)              bit-matrix
 =====================  ===============================  =================
 
 ``apply_bitmatrix`` takes ``formulation`` ``"xor"`` (kernel
-``xor_apply``), ``"xor3"`` (``xor3_apply``, the same XOR body with a
-deeper ring of staged tiles) or ``"mxu"`` (``mxu_apply``, the
-tensor-core int8 product mod 2).
+``xor_apply``), ``"xor3"`` (``xor3_apply``, the same kernel on widths
+that are whole multiples of 32 KiB) or ``"mxu"`` (``mxu_apply``, the tensor-core int8 product mod
+2).  The four fused kernels, ``xor_apply`` and ``xor3_apply`` launch one
+CUDA body, ``layout_xor``, which reads and writes all three layouts
+(stripe-major, fragment-major, plane-major); they differ only in the
+layout pair they pass it.
 ``encode`` and ``decode`` are the stripe-major entry points: ``"fused"``
 runs the fused kernels, the other three the transpose sandwich around
 ``apply_bitmatrix``, as ``gf256_pallas.encode/decode`` do.
@@ -124,8 +127,8 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = [vp, vp, vp, ctypes.c_int64, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, vp]
                 fn.restype = ctypes.c_int
-            lib.gf256_plane_xor_blocks.argtypes = [ctypes.c_int] * 2
-            lib.gf256_plane_xor_blocks.restype = ctypes.c_int
+            lib.gf256_xor_blocks.argtypes = [ctypes.c_int] * 2
+            lib.gf256_xor_blocks.restype = ctypes.c_int
             lib.gf256_error_string.argtypes = [ctypes.c_int]
             lib.gf256_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -133,13 +136,13 @@ def library() -> ctypes.CDLL:
 
 
 def xor_blocks_per_sm(r: int, device: int = 0) -> int:
-    """Blocks per SM of the kernel that ``xor`` and ``xor3`` launch for
-    ``r`` output planes (the occupancy calculator's count; the grid is
-    that many blocks per SM)."""
+    """Blocks per SM of the body of the six XOR kernels for ``r`` output
+    planes (the occupancy calculator's count; the grid is that many
+    blocks per SM)."""
     lib = library()
-    n = lib.gf256_plane_xor_blocks(r, device)
+    n = lib.gf256_xor_blocks(r, device)
     if n < 0:
-        raise RuntimeError(f"plane_xor occupancy: CUDA error {-n} "
+        raise RuntimeError(f"layout_xor occupancy: CUDA error {-n} "
                            f"({lib.gf256_error_string(-n).decode()})")
     return n
 

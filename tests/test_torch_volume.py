@@ -1,5 +1,5 @@
-"""A 4+2 disperse volume served by the port (glusterfs_tpu_torch,
-``cpu-extensions torch`` on the CPU) against the same volume served by
+"""4+2 and 8+4 disperse volumes served by the port (glusterfs_tpu_torch,
+``cpu-extensions torch`` on the CPU) against the same volumes served by
 the JAX package (``cpu-extensions ref``): the same writes leave
 byte-identical fragment files on the bricks, each package mounts and
 reads the bricks the other wrote, and degraded reads and the systematic
@@ -26,8 +26,8 @@ def _rand(n, seed):
                                                 dtype=np.uint8).tobytes()
 
 
-def _port(base, systematic="off", down=()):
-    g = Graph.construct(ec_volfile(base, N, R, options={
+def _port(base, systematic="off", down=(), k=K, r=R):
+    g = Graph.construct(ec_volfile(base, k + r, r, options={
         "cpu-extensions": "torch", "systematic": systematic}))
     c = SyncClient(g)
     c.mount()
@@ -37,8 +37,8 @@ def _port(base, systematic="off", down=()):
     return c, g.top
 
 
-def _jax(base, systematic="off", down=()):
-    g = JaxGraph.construct(jax_volfile(base, N, R, options={
+def _jax(base, systematic="off", down=(), k=K, r=R):
+    g = JaxGraph.construct(jax_volfile(base, k + r, r, options={
         "cpu-extensions": "ref", "systematic": systematic}))
     c = JaxClient(g)
     c.mount()
@@ -56,64 +56,82 @@ def _spoil(base, bricks):
                 p.write_bytes(bytes(b ^ 0xFF for b in p.read_bytes()))
 
 
-FILES = {f"/f{i}": _rand(size, seed=i) for i, size in enumerate(
-    [1, 511, STRIPE - 1, STRIPE + 1, 3 * STRIPE + 100, 64 << 10])}
+def _files(k):
+    """File sizes across a stripe of k fragments: under one chunk, a
+    stripe less and more one byte, an unaligned multi-stripe tail."""
+    stripe = k * 512
+    return {f"/f{i}": _rand(size, seed=i) for i, size in enumerate(
+        [1, 511, stripe - 1, stripe + 1, 3 * stripe + 100, 64 << 10])}
+
+
 PATCH = (1800, _rand(700, seed=99))
 
 
-def _write_all(c):
-    for path, data in FILES.items():
+def _write_all(c, files):
+    for path, data in files.items():
         c.write_file(path, data)
     f = c.open("/f4")
     f.write(PATCH[1], PATCH[0])  # unaligned read-modify-write
     f.close()
 
 
-def _expected():
-    want = dict(FILES)
+def _expected(files):
+    want = dict(files)
     b = bytearray(want["/f4"])
     b[PATCH[0]:PATCH[0] + len(PATCH[1])] = PATCH[1]
     want["/f4"] = bytes(b)
     return want
 
 
-def _read_all(c):
-    return {p: c.read_file(p) for p in FILES}
+def _read_all(c, files):
+    return {p: c.read_file(p) for p in files}
 
 
-@pytest.mark.parametrize("systematic", ["off", "on"])
-def test_fragments_identical_and_bricks_cross_readable(tmp_path, systematic):
-    want = _expected()
+# (systematic, k, r, bricks down on the JAX package's bricks, on the
+# port's): r bricks down, spoiled
+CROSS = [("off", 4, 2, (0, 3), (1, 4)), ("on", 4, 2, (0, 3), (1, 4)),
+         ("off", 8, 4, (0, 4, 8, 11), (1, 5, 9, 10)),
+         ("on", 8, 4, (0, 4, 8, 11), (1, 5, 9, 10))]
+
+
+@pytest.mark.parametrize(
+    "systematic,k,r,jax_down,port_down",
+    [pytest.param(*case, id=case[0] if case[1:3] == (4, 2)
+                  else f"{case[0]}-{case[1]}+{case[2]}") for case in CROSS])
+def test_fragments_identical_and_bricks_cross_readable(
+        tmp_path, systematic, k, r, jax_down, port_down):
+    files = _files(k)
+    want = _expected(files)
     pdir, jdir = tmp_path / "port", tmp_path / "jax"
-    c, _ = _port(pdir, systematic)
-    _write_all(c)
-    assert _read_all(c) == want
+    c, _ = _port(pdir, systematic, k=k, r=r)
+    _write_all(c, files)
+    assert _read_all(c, files) == want
     c.close()
-    c, _ = _jax(jdir, systematic)
-    _write_all(c)
+    c, _ = _jax(jdir, systematic, k=k, r=r)
+    _write_all(c, files)
     c.close()
 
-    for i in range(N):
-        for path in FILES:
+    for i in range(k + r):
+        for path in files:
             name = path.lstrip("/")
             assert (pdir / f"brick{i}" / name).read_bytes() == \
                 (jdir / f"brick{i}" / name).read_bytes(), (i, path)
 
     # each package mounts the bricks the other wrote, healthy and then
-    # with two bricks down (their fragments spoiled)
-    c, _ = _port(jdir, systematic)
-    assert _read_all(c) == want
+    # with r bricks down (their fragments spoiled)
+    c, _ = _port(jdir, systematic, k=k, r=r)
+    assert _read_all(c, files) == want
     c.close()
-    c, _ = _jax(pdir, systematic)
-    assert _read_all(c) == want
+    c, _ = _jax(pdir, systematic, k=k, r=r)
+    assert _read_all(c, files) == want
     c.close()
-    _spoil(jdir, (0, 3))
-    _spoil(pdir, (1, 4))
-    c, _ = _port(jdir, systematic, down=(0, 3))
-    assert _read_all(c) == want
+    _spoil(jdir, jax_down)
+    _spoil(pdir, port_down)
+    c, _ = _port(jdir, systematic, down=jax_down, k=k, r=r)
+    assert _read_all(c, files) == want
     c.close()
-    c, _ = _jax(pdir, systematic, down=(1, 4))
-    assert _read_all(c) == want
+    c, _ = _jax(pdir, systematic, down=port_down, k=k, r=r)
+    assert _read_all(c, files) == want
     c.close()
 
 
