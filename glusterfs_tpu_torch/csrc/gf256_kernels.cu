@@ -61,9 +61,10 @@
 //   (stripe-major, where the chunk's 16 planes of a stripe are one run of
 //   1 KiB), one chunk of one stripe (fragment-major, where a fragment's 8
 //   stripes are one run of 4 KiB) or 8 stripes of one plane
-//   (plane-major).  Each thread computes its slot index from its address;
-//   the 16-byte lanes of odd planes sit at lane ^ 4, so the two planes of
-//   a quarter warp's store land on distinct banks in all three orders.
+//   (plane-major).  Each thread's two copies per slot keep their source
+//   offset from the step's first byte and their slot index at every
+//   step, so both are made once per launch (made per step, they cost
+//   `xor_apply` 2.5-4.5 % at 8+4 and 16+4 on the H100; PERF.md).
 // - Four-plane tables: after each slot lands, the block writes, for each
 //   group of 4 staged planes and each lane, the 16 XORs of the group's
 //   subsets (entry e = XOR of the planes whose bit is set in e; two warps
@@ -253,15 +254,19 @@ constexpr int kXorMaxRB = 20;    // output planes a warp holds (8*20 = 160)
 constexpr int kXorStages = 6;    // ring slots
 constexpr int kXorSlot = kXorChunk * 32;   // uint4 lanes of one ring slot
 constexpr int kXorTable = 16 * 32;         // uint4 lanes of one table
+// The most stripes one launch takes (137 GB of input at C = 8): tile and
+// step counts stay within 32 bits.
+constexpr int64_t kXorMaxStripes = int64_t{1} << 28;
 
 // Output planes per warp padded to whole uint4 loads of 16-bit offsets.
 __host__ __device__ constexpr int xor_rows_padded(int rb) {
   return (rb + 7) / 8 * 8;
 }
 
-// Element e (0..511) of a ring slot's staging, in the input's own order:
+// Element e (0..255) of a ring slot's staging, in the input's own order:
 // its plane pl (0..15) of the chunk and its stripe t (0..7) of the tile;
-// its quarter is e % 4 in every layout.
+// its quarter is e % 4 in every layout.  Element e + 256 is 4 stripes on
+// (stripe-major) or 8 planes on (the others).
 __device__ __forceinline__ void xor_stage_coords(Layout in, int e, int& pl,
                                                  int& t) {
   if (in == kStripeMajor) {  // stripe, plane, quarter
@@ -269,17 +274,11 @@ __device__ __forceinline__ void xor_stage_coords(Layout in, int e, int& pl,
     pl = (e >> 2) & 15;
   } else if (in == kFragmentMajor) {  // fragment, stripe, plane, quarter
     t = (e >> 5) & 7;
-    pl = (e >> 8) << 3 | ((e >> 2) & 7);
+    pl = (e >> 2) & 7;
   } else {  // plane, stripe, quarter
     t = (e >> 2) & 7;
     pl = e >> 5;
   }
-}
-
-// The uint4 index in a ring slot of plane pl's 16-byte lane l (l = 4t +
-// quarter): odd planes at l ^ 4 (see the note at the top).
-__device__ __forceinline__ int xor_slot_index(int pl, int l) {
-  return pl * 32 + (l ^ ((pl & 1) << 2));
 }
 
 template <int RB>
@@ -321,34 +320,39 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   // A block's steps: its tiles, each in `passes` passes of `chunks` ring
-  // slots.
-  const int64_t tiles = (S + kXorStripes - 1) / kXorStripes;
+  // slots (32-bit counts: S is at most kXorMaxStripes).
+  const int tiles = static_cast<int>((S + kXorStripes - 1) / kXorStripes);
   const int chunks = (C + kXorChunk - 1) / kXorChunk;
-  const int64_t steps =
-      tiles > blockIdx.x
-          ? ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * passes * chunks
+  const int steps =
+      tiles > static_cast<int>(blockIdx.x)
+          ? ((tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1) *
+                passes * chunks
           : 0;
-  int64_t st_tile = blockIdx.x, st_step = 0;  // the next step to stage
+  // This thread stages elements threadIdx.x and threadIdx.x + 256 of
+  // every ring slot: their offsets from the step's first byte, and their
+  // places in the slot, are the same at every step.
+  int pl, t;
+  xor_stage_coords(in, threadIdx.x, pl, t);
+  const bool by_stripe = in == kStripeMajor;
+  const int64_t from = (pl >> 3) * src.group + (pl & 7) * src.plane +
+                       t * src.stripe + (threadIdx.x & 3) * 16;
+  const int64_t from_next = by_stripe ? 4 * src.stripe : src.group;
+  const int at = pl * 32 + 4 * t + (threadIdx.x & 3);
+  const int at_next = by_stripe ? 16 : 8 * 32;
+  int st_tile = blockIdx.x, st_step = 0;  // the next step to stage
   int st_chunk = 0, st_pass = 0;
   auto stage = [&](int slot) {
     if (st_step < steps) {
       // planes 16c.. of stripes 8t..: chunk c is fragments 2c and 2c + 1
-      const uint8_t* base = x + st_tile * kXorStripes * src.stripe +
-                            st_chunk * 2 * src.group;
-      const int64_t stripes = S - st_tile * kXorStripes;  // left in S
-      const int planes = C - st_chunk * kXorChunk;        // left in C
-      uint4* to = ring + slot * kXorSlot;
-#pragma unroll
-      for (int h = 0; h < kXorSlot / kThreads; ++h) {
-        const int e = threadIdx.x + h * kThreads;
-        int pl, t;
-        xor_stage_coords(in, e, pl, t);
-        if (pl < planes && t < stripes) {
-          const int q = e & 3;
-          cp_async16(to + xor_slot_index(pl, 4 * t + q),
-                     base + (pl >> 3) * src.group + (pl & 7) * src.plane +
-                         t * src.stripe + q * 16);
-        }
+      const uint8_t* base = x + int64_t{st_tile} * kXorStripes * src.stripe +
+                            st_chunk * 2 * src.group + from;
+      // stripes of the tile and planes of the chunk from this thread's on
+      const int64_t stripes = S - int64_t{st_tile} * kXorStripes - t;
+      const int planes = C - st_chunk * kXorChunk - pl;
+      uint4* to = ring + slot * kXorSlot + at;
+      if (planes > 0 && stripes > 0) cp_async16(to, base);
+      if (by_stripe ? planes > 0 && stripes > 4 : planes > 8 && stripes > 0) {
+        cp_async16(to + at_next, base + from_next);
       }
       if (++st_chunk == chunks) {
         st_chunk = 0;
@@ -367,10 +371,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   uint4 acc[RB];
 #pragma unroll
   for (int i = 0; i < RB; ++i) acc[i] = make_uint4(0u, 0u, 0u, 0u);
-  int64_t tile = blockIdx.x;
+  int tile = blockIdx.x;
   int chunk = 0, pass = 0, slot = 0;
   const int grp = warp >> 1;  // the table this warp fills
-  for (int64_t step = 0; step < steps; ++step) {
+  for (int step = 0; step < steps; ++step) {
     cp_async_wait<kXorStages - 2>();
     __syncthreads();  // this slot is in; the tables and the slot staged
                       // next are free
@@ -380,11 +384,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     // slot with bit q of e set; warps 2g and 2g + 1 fill entries 1-7 and
     // 8-15 (planes past C hold stale bytes; no mask bit selects them).
     if (chunk * kXorChunk + grp * kXorGroup < C) {
-      const uint4* xs = ring + slot * kXorSlot + grp * kXorGroup * 32;
-      const uint4* even = xs + lane;       // planes 4g and 4g + 2
-      const uint4* odd = xs + (lane ^ 4);  // 4g + 1 and 4g + 3
+      const uint4* xs = ring + slot * kXorSlot + grp * kXorGroup * 32 + lane;
       uint4* t = tab + grp * kXorTable + lane;
-      const uint4 v0 = even[0], v1 = odd[32], v2 = even[64];
+      const uint4 v0 = xs[0], v1 = xs[32], v2 = xs[64];
       uint4 v01 = v0;
       xor_into(v01, v1);
       auto put = [&](int e, uint4 a, const uint4& b) {  // entry e = a ^ b
@@ -400,7 +402,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         put(6, v2, v1);
         put(7, v2, v01);
       } else {
-        const uint4 v3 = odd[96];
+        const uint4 v3 = xs[96];
         t[8 * 32] = v3;
         put(9, v3, v0);
         put(10, v3, v1);
@@ -440,7 +442,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     if (++chunk == chunks) {  // the pass over this tile is done
       chunk = 0;
-      const int64_t s = tile * kXorStripes + (lane >> 2);
+      const int64_t s = int64_t{tile} * kXorStripes + (lane >> 2);
       uint8_t* ys = y + s * dst.stripe + (lane & 3) * 16;
 #pragma unroll
       for (int i = 0; i < RB; ++i) {
@@ -533,7 +535,7 @@ int xor_entry(const void* x, void* y, const void* masks, int64_t S, int C,
               int R, Layout in, Layout out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (S < 0 || C < 1 || C > kXorPlanes || R < 1) {
+  if (S < 0 || S > kXorMaxStripes || C < 1 || C > kXorPlanes || R < 1) {
     return cudaErrorInvalidValue;
   }
   if (S == 0) return cudaSuccess;
