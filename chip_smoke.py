@@ -700,7 +700,8 @@ async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
         await c.unmount()
     return {"write_mib_s": write, "healthy_read_mib_s": healthy,
             "degraded_read_mib_s": degraded, "bricks_down": list(down),
-            "config": f"{n - r}+{r}", "groups": groups, "small_files_per_group": placed,
+            "config": f"{n - r}+{r}", "groups": groups,
+            "small_files_per_group": placed,
             "write_path": write_path, "codec": stats,
             "degraded_codec": dstats, "launches_write": on_write,
             "launches_healthy_read": on_read,

@@ -17,11 +17,11 @@ wrapper                layouts (in -> out)              bit-matrix
 
 ``apply_bitmatrix`` takes ``formulation`` ``"xor"`` (kernel
 ``xor_apply``), ``"xor3"`` (``xor3_apply``, the same kernel on widths
-that are whole multiples of 32 KiB) or ``"mxu"`` (``mxu_apply``, the tensor-core int8 product mod
-2).  The four fused kernels, ``xor_apply`` and ``xor3_apply`` launch one
-CUDA body, ``layout_xor``, which reads and writes all three layouts
-(stripe-major, fragment-major, plane-major); they differ only in the
-layout pair they pass it.
+that are multiples of 32 KiB) or ``"mxu"`` (``mxu_apply``, the
+tensor-core int8 product mod 2).  The four fused kernels, ``xor_apply``
+and ``xor3_apply`` launch one CUDA body, ``layout_xor``, which reads and
+writes all three layouts (stripe-major, fragment-major, plane-major);
+they differ only in the layout pair they pass it.
 ``encode`` and ``decode`` are the stripe-major entry points: ``"fused"``
 runs the fused kernels, the other three the transpose sandwich around
 ``apply_bitmatrix``, as ``gf256_pallas.encode/decode`` do.

@@ -16,6 +16,16 @@ from glusterfs_tpu_torch.ops import gf256_cuda
 
 STRIPES = [1, 3, 127, 129]
 
+# (k, r) and stripe counts at which the fused kernels are held against
+# their plain versions, here and in chip_smoke.py: C = 8k not a multiple
+# of 16 (k = 1, 3, 5), the served and timed shapes, and 16+8, whose
+# encode has R = 192 output planes (two passes over each tile); one tile
+# and its neighbours, unaligned tails, and 4229 stripes, past two whole
+# waves of the persistent grid (8 stripes a block, 2 blocks on each of
+# 132 SMs: 2112 stripes a wave; the test checks the card's count)
+FUSED_CONFIGS = [(1, 1), (3, 2), (5, 3), (4, 2), (8, 4), (16, 4), (16, 8)]
+FUSED_STRIPES = [1, 3, 7, 8, 9, 127, 129, 4229]
+
 
 def _survivors(k, n, seed):
     rng = np.random.default_rng(seed)
@@ -23,16 +33,23 @@ def _survivors(k, n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,r", [(4, 2), (8, 4), (16, 4)])
+@pytest.mark.parametrize("k,r", FUSED_CONFIGS)
 def test_kernels_match_plain_versions_on_card(k, r):
-    """Each kernel vs its plain version at unaligned stripe counts, and
-    each launch counted (chip_smoke.py repeats this at 256 MiB)."""
+    """Each fused kernel vs its plain version at FUSED_STRIPES: partial
+    last tiles (stripes past S are neither read nor written), C not a
+    multiple of the 16-plane ring slot, R past 160 (several passes) and
+    a grid that walks several tiles a block; each launch counted
+    (chip_smoke.py repeats this, and times 4+2, 8+4 and 16+4 at 256
+    MiB)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
     dev = torch.device("cuda")
     n = k + r
+    wave = 8 * torch.cuda.get_device_properties(0).multi_processor_count \
+        * max(gf256_cuda.xor_blocks_per_sm(p) for p in (n * 8, k * 8))
+    assert max(FUSED_STRIPES) > wave
     gf256_cuda.reset_launches()
-    for s in STRIPES:
+    for s in FUSED_STRIPES:
         data = np.random.default_rng(s).integers(0, 256, s * k * 512,
                                                  dtype=np.uint8)
         x = torch.from_numpy(data).to(dev)
@@ -47,53 +64,6 @@ def test_kernels_match_plain_versions_on_card(k, r):
         assert torch.equal(
             gf256_cuda.fused_reconstruct(surv, k, rows, wanted),
             gf256_cuda.reconstruct_plain(surv, k, rows, wanted))
-    torch.cuda.synchronize()
-    assert gf256_cuda.LAUNCHES == {**dict.fromkeys(gf256_cuda.FUSED,
-                                                   len(STRIPES)),
-                                   **dict.fromkeys(gf256_cuda.KERNELS[4:], 0)}
-
-
-# (k, r) and stripe counts at which the fused kernels are held against
-# their plain versions, here and in chip_smoke.py: C = 8k not a multiple
-# of 16 (k = 1, 3, 5), the served and timed shapes, and 16+8, whose
-# encode has R = 192 output planes (two passes over each tile); one tile
-# and its neighbours, unaligned tails, and 4229 stripes, past two whole
-# waves of the persistent grid (8 stripes a block, 2 blocks on each of
-# 132 SMs: 2112 stripes a wave; the test checks the card's count)
-FUSED_CONFIGS = [(1, 1), (3, 2), (5, 3), (4, 2), (8, 4), (16, 4), (16, 8)]
-FUSED_STRIPES = [1, 3, 7, 8, 9, 127, 129, 4229]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("k,r", FUSED_CONFIGS)
-def test_fused_kernels_tails_and_passes_on_card(k, r):
-    """The four fused kernels against their plain versions, byte-exact,
-    at every FUSED_STRIPES count: partial last tiles (stripes past S are
-    neither read nor written), C not a multiple of the 16-plane ring slot,
-    R past 160 (several passes) and a grid that walks several tiles per
-    block.  Each launch is counted."""
-    _card()
-    dev = torch.device("cuda")
-    n = k + r
-    wave = 8 * torch.cuda.get_device_properties(0).multi_processor_count \
-        * max(gf256_cuda.xor_blocks_per_sm(p) for p in (n * 8, k * 8))
-    assert max(FUSED_STRIPES) > wave
-    gf256_cuda.reset_launches()
-    for s in FUSED_STRIPES:
-        data = np.random.default_rng(100 * k + s).integers(
-            0, 256, s * k * 512, dtype=np.uint8)
-        x = torch.from_numpy(data).to(dev)
-        frags = gf256_cuda.fused_encode(x, k, n)
-        assert torch.equal(frags, gf256_cuda.encode_plain(x, k, n)), s
-        assert torch.equal(gf256_cuda.fused_parity(x, k, n),
-                           gf256_cuda.parity_plain(x, k, n)), s
-        rows = _survivors(k, n, s)
-        surv = frags[list(rows)].contiguous()
-        assert torch.equal(gf256_cuda.fused_decode(surv, k, rows), x), s
-        wanted = tuple(j for j in range(k) if j not in rows) or (0,)
-        assert torch.equal(
-            gf256_cuda.fused_reconstruct(surv, k, rows, wanted),
-            gf256_cuda.reconstruct_plain(surv, k, rows, wanted)), s
     torch.cuda.synchronize()
     assert gf256_cuda.LAUNCHES == {**dict.fromkeys(gf256_cuda.FUSED,
                                                    len(FUSED_STRIPES)),
