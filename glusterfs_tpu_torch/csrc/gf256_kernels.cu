@@ -85,9 +85,10 @@
 //   Planes past C in the last ring slot are stale too; no mask bit
 //   selects them.
 // The layout pair is a runtime argument, uniform and used only in address
-// arithmetic: one instantiation per RB serves all six kernels (layouts as
-// template arguments, 36 instantiations, were no faster beyond the spread
-// but at 4+2 parity, and spilled at RB = 20; PERF.md).  The TPU's
+// arithmetic: one instantiation per RB serves all six kernels.  Layouts
+// as template arguments (36 instantiations) gained only at 4+2 parity and
+// reconstruct, which the staging offsets made once per launch gain as
+// well, and spilled at RB = 20 (PERF.md).  The TPU's
 // xor3 filled whole vregs with (256, 128) row tiles where xor used (1, W)
 // row slices; on Hopper "more bytes in flight per step" is more slots in
 // flight, not a larger synchronous tile, and 6 slots were no slower than 4
