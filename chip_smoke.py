@@ -48,11 +48,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    healthy and with 2 bricks of each group down;
 8. ``served-8+4``: a non-systematic 8+4 disperse volume (12 bricks,
    ``cpu-extensions auto``), the same writes, read back healthy and with
-   4 bricks down (fused encode and decode at k = 8).
+   4 bricks down (fused encode and decode at k = 8);
+9. ``served-4+2-heal``: self-heal after a brick replacement
+   (``BASELINE.json`` config 4): the same writes on a 4+2 volume, bricks
+   0 and 3 wiped under the live volume and rebuilt by ``heal_file``
+   (fused decode then encode); then on a systematic 4+2 volume with
+   bricks 1 and 5 wiped (fused reconstruct then parity).  Every healed
+   fragment file must hash as before the wipe, carry the good bricks'
+   ``trusted.ec.version`` and ``size``, ``heal_info`` must report no bad
+   brick, and with two other bricks spoiled and down every file must
+   read back exactly;
+10. ``served-4+2-ladder``: the same traffic on a 4+2 volume with the
+   default ``stripe-cache-min-batch`` (256KB), its codecs calibrated
+   (``ensure_calibrated()``) before the timed window: both fitted
+   models, the break-even and the flushes per route (card or the native
+   AVX2 codec);
+11. ``native-vs-card``: ``Codec(4, 2, "native")`` against
+   ``Codec(4, 2, "cuda")`` on 4+2 encode and decode of 1 MiB and 64 MiB
+   (host clock, copies included), beside the host's CPU model.
 
-The launch counters are set to 0 just before each path (phases 4-8)
-and read just after it; a kernel of the path that was never launched
-fails the run.  The line before the last is the ``kernels`` summary,
+Phases 5-8 pin ``stripe-cache-min-batch 0`` (every flush on the card),
+and so does the heal phase, which must show the kernels' launches.  The
+launch counters are set to 0 just before each path (phases 4-10) and
+read just after it (the ladder phase takes its calibration's launches
+back out); a kernel of the path that was never launched fails the
+run.  The line before the last is the ``kernels`` summary,
 then the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -60,6 +80,7 @@ then the card's name and power limit, and the last line
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import itertools
 import json
 import os
@@ -76,6 +97,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from glusterfs_tpu_torch.core.layer import Loc  # noqa: E402
 from glusterfs_tpu_torch.ops import gf256_cuda as gc  # noqa: E402
 from tests.test_torch_cuda import (FUSED_CONFIGS,  # noqa: E402
                                    FUSED_STRIPES, XOR_EDGE_CASES,
@@ -589,7 +611,8 @@ async def _mount(base: Path, options: dict, fresh: bool, groups: int,
     c = Client(Graph.construct(ec_volfile(base, n, r, groups=groups,
                                           options={
         "cpu-extensions": "auto", "stripe-cache": "on",
-        "stripe-cache-window": 2000, **options})))
+        "stripe-cache-window": 2000, "stripe-cache-min-batch": 0,
+        **options})))
     await c.mount()
     top = c.graph.top
     return c, [top] if groups == 1 else list(top.children)
@@ -633,27 +656,58 @@ def _since(before: dict) -> dict:
     return {n: gc.LAUNCHES[n] - before.get(n, 0) for n in gc.KERNELS}
 
 
+async def _calibrate(ecs) -> list[dict]:
+    """``ensure_calibrated()`` on each codec (raises if a calibration
+    failed; it must reach "done"), then the calibration's kernel launches
+    are taken back out of the counters: they are not the served path's.
+    Returns each codec's fitted models."""
+    kept = dict(gc.LAUNCHES)
+    models = []
+    for ec in ecs:
+        st = None
+        if await ec.codec.ensure_calibrated():
+            st = ec.codec.dump_stats()
+        if st is None or st["calibration"] != "done":
+            raise AssertionError(f"{ec.name}: calibration did not finish: "
+                                 f"{ec.codec.dump_stats()}")
+        models.append({key: st[key] for key in (
+            "device_model", "native_model", "break_even_bytes")})
+    torch.cuda.synchronize()
+    gc.LAUNCHES.update(kept)
+    return models
+
+
+async def _write_files(c, g) -> tuple[dict, float]:
+    """64 concurrent 1 MiB files and a 1 GiB file in 64 MiB writes;
+    returns the files and the write MiB/s."""
+    files = {f"/f{i}": _payload(g, MiB) for i in range(SMALL_FILES)}
+    big = _payload(g, BIG_BYTES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    await asyncio.gather(*(c.write_file(p, d) for p, d in files.items()))
+    await _write_big(c, "/big", big, 64 * MiB)
+    write = (SMALL_FILES * MiB + len(big)) / MiB / (time.perf_counter() - t0)
+    files["/big"] = big
+    return files, write
+
+
 async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
-                 groups: int = 1, n: int = 6, r: int = 2) -> dict:
+                 groups: int = 1, n: int = 6, r: int = 2,
+                 calibrate: bool = False) -> dict:
     """Write 64 concurrent 1 MiB files and a 1 GiB file in 64 MiB
     writes (on a systematic volume also an unaligned overwrite) to
     ``groups`` (n, r) disperse groups, read everything back; then spoil
     the ``down`` bricks (global indices: brick i is child i % n of group
-    i // n), remount with them down and read everything again."""
+    i // n), remount with them down and read everything again.  With
+    ``calibrate``, each mount's codecs are calibrated before its timed
+    window (:func:`_calibrate`)."""
     backend = options.get("cpu-extensions", "auto").replace("auto", "cuda")
     c, ecs = await _mount(base, options, fresh=True, groups=groups, n=n,
                           r=r)
     try:
-        files = {f"/f{i}": _payload(g, MiB) for i in range(SMALL_FILES)}
-        big = _payload(g, BIG_BYTES)
-        torch.cuda.synchronize()
+        models = await _calibrate(ecs) if calibrate else None
         at_start = dict(gc.LAUNCHES)
-        t0 = time.perf_counter()
-        await asyncio.gather(*(c.write_file(p, d) for p, d in files.items()))
-        await _write_big(c, "/big", big, 64 * MiB)
-        write = (SMALL_FILES * MiB + len(big)) / MiB / (
-            time.perf_counter() - t0)
-        files["/big"] = big
+        files, write = await _write_files(c, g)
         if options.get("systematic") == "on":
             # unaligned overwrite inside a healthy file: the parity delta
             patch = _payload(g, 3001)
@@ -675,8 +729,11 @@ async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
     finally:
         await c.unmount()
     for st in stats:
-        if not (st["launches"] > 0 and st["max_batch"] > 1):
+        if not (st["launches"] + st["cpu_launches"] > 0
+                and st["max_batch"] > 1):
             raise AssertionError(f"codec did not batch: {stats}")
+        if st["min_batch_bytes"] == 0 and st["cpu_launches"]:
+            raise AssertionError(f"a pinned codec took the CPU: {stats}")
         if st["backend"] != backend:
             raise AssertionError(f"volume codec is {st['backend']}, "
                                  f"not {backend}")
@@ -692,6 +749,7 @@ async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
     try:
         for i in down:
             ecs[i // n].set_child_up(i % n, False)
+        degraded_models = await _calibrate(ecs) if calibrate else None
         at_degraded = dict(gc.LAUNCHES)
         degraded = await _read_all(c, files)
         on_degraded = _since(at_degraded)
@@ -705,7 +763,9 @@ async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
             "write_path": write_path, "codec": stats,
             "degraded_codec": dstats, "launches_write": on_write,
             "launches_healthy_read": on_read,
-            "launches_degraded_read": on_degraded}
+            "launches_degraded_read": on_degraded,
+            **({"models": models, "degraded_models": degraded_models}
+               if calibrate else {})}
 
 
 async def served_plain(base: Path, g) -> dict:
@@ -747,6 +807,196 @@ async def served_8p4(base: Path, g) -> dict:
     return res
 
 
+def _sha256(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(16 * MiB):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _wipe(base: Path, ec, i: int) -> None:
+    """Replace brick i under the live volume: ``rmtree`` it, recreate
+    the sidecar skeleton a respawned brick would make, and have the live
+    brick layer drop its cached state (tests/test_index_shd.py)."""
+    shutil.rmtree(base / f"brick{i}")
+    for sub in ("gfid", "xattr", "handle", os.path.join("indices",
+                                                         "xattrop")):
+        os.makedirs(base / f"brick{i}" / ".glusterfs_tpu" / sub)
+    ec.children[i].drop_caches()
+
+
+async def _ec_xattrs(ec, i: int, path: str) -> tuple:
+    xa = await ec.children[i].getxattr(Loc(path), None)
+    return tuple(bytes(xa[name]) for name in ("trusted.ec.version",
+                                              "trusted.ec.size"))
+
+
+async def _heal_volume(base: Path, g, systematic: str,
+                       wiped: tuple[int, ...],
+                       down: tuple[int, ...]) -> dict:
+    """Write the served traffic to a 4+2 volume, keep a SHA-256 of the
+    ``wiped`` bricks' fragment files, remount, wipe those bricks under
+    the live volume and heal every file (the small ones concurrently,
+    the big one alone).  Then every healed fragment file must hash as
+    before, carry the good bricks' version and size, ``heal_info`` must
+    report no bad brick, and with the ``down`` bricks spoiled and down
+    every file must read back exactly."""
+    options = {"systematic": systematic}
+    c, ecs = await _mount(base, options, fresh=True, groups=1, n=6, r=2)
+    try:
+        files, write = await _write_files(c, g)
+    finally:
+        await c.unmount()
+    names = [p.lstrip("/") for p in files]
+    before = {(i, nm): _sha256(base / f"brick{i}" / nm)
+              for i in wiped for nm in names}
+    c, (ec,) = await _mount(base, options, fresh=False, groups=1, n=6, r=2)
+    try:
+        for i in wiped:
+            _wipe(base, ec, i)
+        infos = await asyncio.gather(*(ec.heal_info(Loc(p)) for p in files))
+        for p, info in zip(files, infos):
+            if sorted(info["bad"]) != sorted(wiped):
+                raise AssertionError(f"{p}: heal_info before the heal: "
+                                     f"{info}")
+        small = [p for p in files if p != "/big"]
+        torch.cuda.synchronize()
+        at_heal = dict(gc.LAUNCHES)
+        t0 = time.perf_counter()
+        res = await asyncio.gather(*(ec.heal_file(p) for p in small))
+        res.append(await ec.heal_file("/big"))
+        torch.cuda.synchronize()
+        heal_s = time.perf_counter() - t0
+        on_heal = _since(at_heal)
+        for p, rr in zip(small + ["/big"], res):
+            if sorted(rr["healed"]) != sorted(wiped) or not rr["stable"]:
+                raise AssertionError(f"{p}: heal_file {rr}")
+        for p in files:
+            bad = (await ec.heal_info(Loc(p)))["bad"]
+            if bad:
+                raise AssertionError(f"{p}: still bad after heal: {bad}")
+            good = [i for i in range(6) if i not in wiped]
+            want = await _ec_xattrs(ec, good[0], p)
+            for i in wiped:
+                if await _ec_xattrs(ec, i, p) != want:
+                    raise AssertionError(f"{p}: brick {i}'s version or size "
+                                         "differs from the good bricks'")
+        stats = ec.codec.dump_stats()
+    finally:
+        await c.unmount()
+    after = {(i, nm): _sha256(base / f"brick{i}" / nm)
+             for i in wiped for nm in names}
+    if after != before:
+        raise AssertionError("healed fragments differ from before the wipe: "
+                             f"{[k for k in before if after[k] != before[k]]}")
+    _spoil(base, down)
+    c, (ec,) = await _mount(base, options, fresh=False, groups=1, n=6, r=2)
+    try:
+        for i in down:
+            ec.set_child_up(i, False)
+        degraded = await _read_all(c, files)
+    finally:
+        await c.unmount()
+    healed_mib = sum(map(len, files.values())) / MiB
+    return {"systematic": systematic, "bricks_wiped": list(wiped),
+            "bricks_down_after": list(down), "files": len(files),
+            "healed_mib": healed_mib, "heal_s": heal_s,
+            "heal_mib_s": healed_mib / heal_s, "write_mib_s": write,
+            "degraded_read_mib_s": degraded, "launches_heal": on_heal,
+            "fragments_hashed": len(before), "codec": stats}
+
+
+async def served_heal(base: Path, g) -> dict:
+    """Self-heal after a brick replacement (``BASELINE.json`` config 4,
+    tests/basic/ec/ec-heal.t): a plain 4+2 volume (bricks 0 and 3 wiped;
+    heal decodes then encodes) and a systematic one (bricks 1 and 5; heal
+    reconstructs the lost data row, then computes parity)."""
+    plain = await _heal_volume(base / "plain", g, "off", (0, 3), (1, 4))
+    syst = await _heal_volume(base / "systematic", g, "on", (1, 5), (0, 4))
+    for vol, names in ((plain, ("fused_decode", "fused_encode")),
+                       (syst, ("fused_reconstruct", "fused_parity"))):
+        for name in names:
+            if vol["launches_heal"][name] < 1:
+                raise AssertionError(f"{name} not launched by the "
+                                     f"{vol['systematic']} heal: "
+                                     f"{vol['launches_heal']}")
+    return {"config": "4+2", "plain": plain, "systematic_vol": syst}
+
+
+async def served_ladder(base: Path, g) -> dict:
+    """The served traffic on a 4+2 volume with the default
+    ``stripe-cache-min-batch`` (256KB): each flush takes the card or the
+    native codec by the calibrated models.  The route split is reported,
+    not asserted."""
+    res = await _serve(base, g, {"systematic": "off",
+                                 "stripe-cache-min-batch": "256KB"},
+                       down=(0, 3), calibrate=True)
+    res["routes"] = {
+        "write_and_healthy_read": {k: res["codec"][0][k] for k in (
+            "launches", "cpu_launches", "batched_fops")},
+        "degraded_read": {k: res["degraded_codec"][0][k] for k in (
+            "launches", "cpu_launches", "batched_fops")}}
+    return res
+
+
+def _host_cpu() -> dict:
+    """The first processor's identity in /proc/cpuinfo (where a kernel
+    leaves the model name out, vendor, family and model stand in),
+    whether it has avx2, and the CPU count."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            if not key.strip():
+                break  # the first processor only
+            info.setdefault(key.strip(), val.strip())
+    return {**{k: info.get(k) for k in ("model name", "vendor_id",
+                                         "cpu family", "model", "cpu MHz")},
+            "avx2": "avx2" in info.get("flags", "").split(),
+            "cpus": os.cpu_count()}
+
+
+def phase_native_vs_card(card: str) -> dict:
+    """4+2 encode and decode (fragments 0 and 3 lost) of 1 MiB and
+    64 MiB through ``Codec(4, 2, "native")`` and ``Codec(4, 2, "cuda")``:
+    the host clock around each call, copies to and from the card
+    included; the median of several calls after one untimed call.  The
+    ratio is the card's rate over the native codec's."""
+    from glusterfs_tpu_torch.ops.codec import Codec
+
+    rows = (1, 2, 4, 5)
+    codecs = {b: Codec(4, 2, b) for b in ("native", "cuda")}
+    rng = np.random.default_rng(4)
+    out = {}
+    for size, reps in ((MiB, 21), (64 * MiB, 5)):
+        data = rng.integers(0, 256, size, dtype=np.uint8)
+        frags = codecs["native"].encode(data)
+        sub = np.ascontiguousarray(frags[list(rows)])
+        row = {}
+        for b, codec in codecs.items():
+            if not np.array_equal(codec.encode(data), frags) or \
+                    not np.array_equal(codec.decode(sub, rows), data):
+                raise AssertionError(f"{b} codec disagrees at {size} bytes")
+            for op, fn in (("encode", lambda c=codec: c.encode(data)),
+                           ("decode", lambda c=codec: c.decode(sub, rows))):
+                times = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    fn()
+                    times.append(time.perf_counter() - t0)
+                s = float(np.median(times))
+                row[f"{b}_{op}_s"] = s
+                row[f"{b}_{op}_mib_s"] = size / MiB / s
+        for op in ("encode", "decode"):
+            row[f"{op}_card_over_native"] = \
+                row[f"cuda_{op}_mib_s"] / row[f"native_{op}_mib_s"]
+        out[f"{size // MiB}MiB"] = row
+    emit("native-vs-card", ok=True, config="4+2", rows=list(rows),
+         host_cpu=_host_cpu(), card=card, sizes=out)
+    return out
+
+
 def _device_share(prof, wall_s: float) -> dict:
     """Device time of a profiled phase by kind, and the idle share of
     its wall time (kernels and copies of one stream do not overlap, so
@@ -786,7 +1036,7 @@ def served(name: str, coro_fn, base: Path, g, card: str,
     launches = dict(gc.LAUNCHES)
     emit(name, ok=True, launches=launches, card=card,
          wall_s=time.perf_counter() - t0, **res)
-    return launches
+    return launches, res
 
 
 def main() -> int:
@@ -817,16 +1067,26 @@ def main() -> int:
     g.manual_seed(1)
     base = ROOT / "_smoke_bricks"
     try:
-        plain = served("served-4+2", served_plain, base / "plain", g, card,
-                       profile)
-        syst = served("served-4+2-systematic", served_systematic,
-                      base / "systematic", g, card, profile)
-        mma = served("served-2x(4+2)-mma", served_dist_mma, base / "dist",
-                     g, card, profile)
-        wide = served("served-8+4", served_8p4, base / "wide", g, card,
-                      profile)
+        plain, _ = served("served-4+2", served_plain, base / "plain", g,
+                          card, profile)
+        syst, _ = served("served-4+2-systematic", served_systematic,
+                         base / "systematic", g, card, profile)
+        mma, _ = served("served-2x(4+2)-mma", served_dist_mma, base / "dist",
+                        g, card, profile)
+        wide, _ = served("served-8+4", served_8p4, base / "wide", g, card,
+                         profile)
+        shutil.rmtree(base, ignore_errors=True)
+        _, heal = served("served-4+2-heal", served_heal, base / "heal", g,
+                         card, profile)
+        shutil.rmtree(base, ignore_errors=True)
+        ladder, _ = served("served-4+2-ladder", served_ladder,
+                           base / "ladder", g, card, profile)
     finally:
         shutil.rmtree(base, ignore_errors=True)
+    phase_native_vs_card(card)
+    healed = {name: heal["plain"]["launches_heal"][name]
+              + heal["systematic_vol"]["launches_heal"][name]
+              for name in gc.FUSED}
     path = {"fused_encode": ("served-4+2", plain),
             "fused_decode": ("served-4+2", plain),
             "fused_parity": ("served-4+2-systematic", syst),
@@ -852,7 +1112,9 @@ def main() -> int:
         if name in gc.FUSED:  # launches on each served path
             row["launches_by_path"] = {"served-4+2": plain[name],
                                        "served-4+2-systematic": syst[name],
-                                       "served-8+4": wide[name]}
+                                       "served-8+4": wide[name],
+                                       "served-4+2-heal": healed[name],
+                                       "served-4+2-ladder": ladder[name]}
         if name == "mxu_apply":
             row["product_ms"] = t["product_ms"]
             row["product_w"] = t["product_w"]

@@ -188,14 +188,15 @@ class DisperseLayer(Layer):
         Option("redundancy", "int", default=2, min=1, max=8),
         Option("cpu-extensions", "enum", default="auto",
                values=("auto", "cuda", "cuda-mma", "torch", "torch-mma",
-                       "ref"),
+                       "native", "ref"),
                description="codec backend (reference disperse.cpu-extensions"
                            " {none,auto,x64,sse,avx} -> auto = cuda, the "
                            "hand-written kernels on the card; cuda-mma = "
                            "non-systematic encode and decode on the "
                            "tensor-core kernel; torch, torch-mma = their "
-                           "plain PyTorch versions on the CPU; ref = the "
-                           "NumPy oracle)"),
+                           "plain PyTorch versions on the CPU; native = "
+                           "the host's AVX2 codec; ref = the NumPy "
+                           "oracle)"),
         Option("read-policy", "enum", default="round-robin",
                values=("round-robin", "gfid-hash", "first-k")),
         Option("ec-read-mask", "str", default="",
@@ -255,6 +256,12 @@ class DisperseLayer(Layer):
                            "same-tick coalescing (flush on the next "
                            "loop pass — concurrent fops still batch, "
                            "a lone sequential writer never waits)"),
+        Option("stripe-cache-min-batch", "size", default="256KB",
+               description="batches below this run on the CPU ladder "
+                           "(the native codec); at or above it the "
+                           "calibrated timing models pick the card or "
+                           "the CPU per flush; 0 pins every flush to "
+                           "the card"),
         Option("eager-lock", "bool", default="on",
                description="hold the txn inodelk across consecutive fops "
                            "on one inode with a delayed combined post-op "
@@ -361,7 +368,8 @@ class DisperseLayer(Layer):
             log.warning(3, "%s: systematic is immutable live (ignored)",
                         self.name)
             self.opts["systematic"] = old["systematic"]
-        codec_keys = ("cpu-extensions", "stripe-cache-window")
+        codec_keys = ("cpu-extensions", "stripe-cache-window",
+                      "stripe-cache-min-batch")
         if any(self.opts[k] != old[k] for k in codec_keys):
             self.codec.close()  # release the replaced codec's pool
             self.codec = self._make_codec()
@@ -384,6 +392,7 @@ class DisperseLayer(Layer):
         return BatchingCodec(
             self.k, self.r, backend,
             window=self.opts["stripe-cache-window"] / 1e6,
+            min_batch=self.opts["stripe-cache-min-batch"],
             systematic=self.opts["systematic"],
             device="cpu" if backend.startswith("torch") else None,
             name=self.name)

@@ -10,13 +10,49 @@ device-resident batches" — is a batching window:
 * one flush concatenates the queued stripe-aligned payloads and makes ONE
   kernel launch for the whole batch (encode; decodes group by surviving
   mask — one launch per mask, the same ``(k, rows)`` keying as the
-  per-mask device-mask cache of ops/gf256_cuda.py);
+  per-mask device-mask cache of ops/gf256_cuda.py and the compiled XOR
+  programs of gf256.DECODE_PROGRAMS that the native codec walks);
 * flushes run OFF the event loop in a small thread pool, so batch N+1
   keeps filling (and can dispatch) while batch N is on the device — fop
   latency never serializes on a device round trip;
-* every flush takes the codec's device, whatever its size: there is no
-  CPU ladder to route small batches to, and no shape bucketing (the
-  kernels take any stripe count).
+* routing between the device and the CPU ladder (the ``native`` AVX2
+  codec) is MEASURED, not assumed: a background calibration times the
+  device at two sizes (fitting ``t = overhead + bytes/rate``) and the
+  native codec on the same data; each flush at or above ``min_batch``
+  then goes to whichever path predicts faster for its size, and flushes
+  below it to the CPU.  Until calibration completes, flushes run on the
+  CPU ladder.  Production flush timings keep updating the models (EMA),
+  so a drifting transfer latency re-routes automatically.  All three
+  queues route: encode, decode and parity delta.
+
+This is the JAX package's ladder (glusterfs_tpu/ops/batch.py) without
+its mesh tier, with four deliberate differences:
+
+(a) A calibration that fails raises.  The JAX package records
+    ``"failed"`` and keeps every flush on the CPU for good, which hides
+    a broken card behind the host codec.  Here the exception is kept
+    and raised from :meth:`BatchingCodec.ensure_calibrated` and from
+    every routed flush after it (the flush's fops get the error).  A
+    native codec that does not build raises the same way: it never
+    becomes ``ref``.
+(b) No power-of-two bucketing.  The JAX package pads each device batch
+    to a power-of-two stripe count to bound XLA recompiles; the port's
+    kernels take any stripe count, so a flush launches its own bytes and
+    the device model predicts (and observes) the unpadded bytes.
+(c) Which backends are the device path: ``cuda`` and ``cuda-mma``, and
+    also ``torch`` and ``torch-mma``, the kernels' plain versions on the
+    CPU, so the routing runs in CPU tests as the JAX package's does on
+    ``xla``.  ``native`` and ``ref`` codecs alias themselves as the CPU
+    ladder: their route is always "cpu".  ``min_batch=0`` pins every
+    flush to the device path without building the native codec at all.
+(d) Device timing ends at the host copy back: :meth:`Codec.encode`
+    returns NumPy, so a device sample runs from the call until the
+    result is on the host, copies included — the same clock in
+    calibration and in every observed flush.  Calibration also gives
+    the native codec an untimed first call at each size, as it gives
+    the device: unwarmed, the first native call measured 1.16 ms of
+    overhead against 0.10 ms on a warm one (PERF.md), which put
+    the break-even at 0 bytes.
 
 Correctness leans on fragment-stream concatenation: fragment ``f`` of
 ``concat(stripes_a, stripes_b)`` is ``concat(frag_f(a), frag_f(b))`` —
@@ -28,10 +64,58 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import threading
+import time
 
 import numpy as np
 
 from .codec import Codec
+
+_DEVICE_BACKENDS = ("cuda", "cuda-mma", "torch", "torch-mma")
+
+# Calibration sizes (in stripes): a small and a large point to fit
+# t(n) = overhead + n / rate.  The large point also warms the kernels.
+_CAL_SMALL = 64
+_CAL_LARGE = 2048
+
+_EMA = 0.3  # weight of a new production sample in the online models
+
+
+class _PathModel:
+    """Online ``t(bytes) = overhead + bytes / rate`` timing model."""
+
+    def __init__(self) -> None:
+        self.overhead = 0.0
+        self.rate = 0.0  # bytes/s; 0 -> uncalibrated
+        self.samples = 0
+
+    @property
+    def ready(self) -> bool:
+        return self.rate > 0.0
+
+    def fit_two_points(self, n1: int, t1: float, n2: int, t2: float) -> None:
+        """Exact fit from calibration at two sizes (n2 > n1)."""
+        slope = max((t2 - t1) / max(n2 - n1, 1), 1e-15)
+        self.rate = 1.0 / slope
+        self.overhead = max(t1 - n1 * slope, 0.0)
+        self.samples = 2
+
+    def observe(self, nbytes: int, secs: float) -> None:
+        """EMA update from a production flush (overhead held, rate tracked)."""
+        if not self.ready:
+            return
+        span = secs - self.overhead
+        if span <= 0:
+            # faster than the modeled overhead: overhead was overestimated
+            self.overhead = (1 - _EMA) * self.overhead + _EMA * secs * 0.5
+            span = max(secs - self.overhead, 1e-9)
+        implied = nbytes / span
+        self.rate = (1 - _EMA) * self.rate + _EMA * implied
+        self.samples += 1
+
+    def predict(self, nbytes: int) -> float:
+        if not self.ready:
+            return float("inf")
+        return self.overhead + nbytes / self.rate
 
 
 class BatchingCodec(Codec):
@@ -40,30 +124,44 @@ class BatchingCodec(Codec):
     The sync ``encode``/``decode`` API stays available (heal tooling,
     tests); the data path awaits ``encode_async``/``decode_async``.
 
-    Stats: ``launches`` counts codec launches (one per flush, sync calls
-    included), ``batched_fops`` total fops served, ``max_batch`` the
+    Stats: ``launches`` counts device-path launches (one per flush routed
+    there, sync calls included), ``cpu_launches`` flushes routed to the
+    CPU ladder, ``batched_fops`` total fops served, ``max_batch`` the
     largest coalesced batch in fops.
+
+    ``min_batch`` is a hard floor below which flushes never go to the
+    device; ``min_batch=0`` disables routing (every flush takes the
+    device path).  Between the floor and the measured break-even, the
+    calibrated models decide per flush.
     """
 
     def __init__(self, k: int, r: int, backend: str = "auto", *,
-                 window: float = 0.0, max_batch_bytes: int = 256 << 20,
+                 window: float = 0.0, min_batch: int = 256 * 1024,
+                 max_batch_bytes: int = 256 << 20,
                  systematic: bool = False, device=None, name: str = ""):
         super().__init__(k, r, backend, systematic=systematic, device=device)
         # instance label: the owning layer's name (a distribute-over-
         # disperse volume has one codec PER group)
         self.name = name or f"{k}+{r}"
         self.window = window
+        self.min_batch = min_batch
         self.max_batch_bytes = max_batch_bytes
         self._enc_q: list[tuple] = []  # (data, fut)
         self._enc_task: asyncio.Task | None = None
         self._dec_q: dict[tuple[int, ...], list[tuple]] = {}
         self._dec_task: asyncio.Task | None = None
         # parity-delta queue: coalesced sub-stripe write deltas ride the
-        # same flush path as full encodes — one parity-rows-only launch
+        # same flush ladder as full encodes — one parity-rows-only launch
         # per flush
         self._delta_q: list[tuple] = []
         self._delta_task: asyncio.Task | None = None
+        # lazy small-batch codec; CPU-ladder backends alias self HERE
+        # (pre-publication, against self.backend as RESOLVED by the
+        # base init) so _small()'s lazy build is the only
+        # cross-context write left — and that one is lock-serialized
+        self._cpu = None if self.backend in _DEVICE_BACKENDS else self
         self.launches = 0
+        self.cpu_launches = 0
         self.batched_fops = 0
         self.max_batch = 0
         # two workers: batch N's device round trip overlaps batch N+1's
@@ -72,8 +170,25 @@ class BatchingCodec(Codec):
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=2, thread_name_prefix=f"ec-codec-{k}+{r}")
         self._lock = threading.Lock()
+        self._dev = _PathModel()
+        self._nat = _PathModel()
+        self._cal_state = "idle"  # idle -> running -> done/failed
+        self._cal_error: BaseException | None = None
+        # calibration is DEFERRED to an idle gap: the first device
+        # encode pays the kernels' build and the allocator's growth —
+        # run that while production flushes are arriving and every
+        # in-flight fop stalls behind it.  Flushes stamp _last_flush; a
+        # debounce task starts calibrating only after _CAL_IDLE_S of
+        # quiet.  ensure_calibrated() still forces it NOW.  Seeded with
+        # NOW, not 0: a zero seed would make the first flush see an
+        # "infinite" idle gap and fire calibration under the cold-start
+        # burst.
+        self._last_flush = time.monotonic()
+        self._cal_timer: asyncio.Task | None = None
 
-    # -- stats hooks (count every launch, sync path included) -------------
+    _CAL_IDLE_S = 0.3
+
+    # -- stats hooks (count every device launch, sync path included) ------
 
     def encode(self, data: np.ndarray) -> np.ndarray:
         with self._lock:
@@ -89,6 +204,189 @@ class BatchingCodec(Codec):
         with self._lock:
             self.launches += 1
         return super().encode_delta(delta)
+
+    def _small(self) -> Codec:
+        # double-checked under the codec lock: _route (loop) and
+        # _calibrate (flush-pool thread) race the first call, and an
+        # unserialized lazy build constructs the native codec twice.
+        # A native codec that does not build raises (no ref fallback).
+        if self._cpu is None:
+            with self._lock:
+                if self._cpu is None:
+                    self._cpu = Codec(self.k, self.r, "native",
+                                      systematic=self.systematic)
+        return self._cpu
+
+    # -- measured break-even routing --------------------------------------
+
+    def _calibrate(self) -> None:
+        """Time device + native at two sizes; fit both models.
+
+        Runs in the pool.  Each size gets a warmup device launch (pays
+        the kernels' build and the allocator's growth) and a timed one,
+        then a warmup and a timed native encode of the same data.  An
+        exception is kept, and raised by ensure_calibrated() and routed
+        flushes.
+        """
+        try:
+            small = self._small()
+            pts_dev, pts_nat = [], []
+            for stripes in (_CAL_SMALL, _CAL_LARGE):
+                data = np.frombuffer(
+                    np.random.default_rng(stripes).bytes(
+                        stripes * self.stripe_size), dtype=np.uint8)
+                super().encode(data)  # warmup
+                t0 = time.perf_counter()
+                super().encode(data)
+                pts_dev.append((data.size, time.perf_counter() - t0))
+                small.encode(data)  # warmup
+                t0 = time.perf_counter()
+                small.encode(data)
+                pts_nat.append((data.size, time.perf_counter() - t0))
+            with self._lock:
+                self._dev.fit_two_points(*pts_dev[0], *pts_dev[1])
+                self._nat.fit_two_points(*pts_nat[0], *pts_nat[1])
+                self._cal_state = "done"
+        except Exception as e:
+            with self._lock:
+                self._cal_error = e
+                self._cal_state = "failed"
+
+    def _calibration_failed(self) -> RuntimeError:
+        return RuntimeError(f"{self.name}: codec calibration on "
+                            f"{self.backend} failed: {self._cal_error!r}")
+
+    def _maybe_start_calibration(self) -> None:
+        with self._lock:
+            if self._cal_state != "idle":
+                return
+            self._cal_state = "running"
+        if self._cal_timer is not None:
+            self._cal_timer.cancel()
+            self._cal_timer = None
+        self._pool.submit(self._calibrate)
+
+    def _maybe_schedule_calibration(self) -> None:
+        """Debounced: start calibration after an idle gap, not under load."""
+        # _cal_state is written by the pool thread (_calibrate) under
+        # the lock; this loop-side read takes it too (an unlocked read
+        # beside a cross-context writer) — one uncontended acquire on a
+        # path that already locks in _route
+        with self._lock:
+            if self._cal_state != "idle" or self._cal_timer is not None:
+                return
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return
+
+        async def when_idle():
+            while True:
+                gap = time.monotonic() - self._last_flush
+                if gap >= self._CAL_IDLE_S:
+                    break
+                await asyncio.sleep(self._CAL_IDLE_S - gap)
+            self._cal_timer = None
+            self._maybe_start_calibration()
+
+        self._cal_timer = loop.create_task(when_idle())
+
+    async def ensure_calibrated(self) -> bool:
+        """Run (or await) calibration; True once the models are fitted,
+        False for a CPU-ladder backend (nothing to route).  Raises the
+        calibration's error, or the native codec's build error.
+
+        Benches call this so routing decisions in the measured window are
+        model-driven rather than 'calibrating -> CPU'.  Daemons never wait.
+        """
+        if self._cpu is self:
+            return False
+        self._small()
+        self._maybe_start_calibration()
+        while True:
+            with self._lock:
+                st = self._cal_state
+            if st == "done":
+                return True
+            if st == "failed":
+                raise self._calibration_failed()
+            await asyncio.sleep(0.01)
+
+    def _route(self, total: int) -> tuple[Codec, str]:
+        """Pick the path for a flush of ``total`` bytes ->
+        ``(codec, kind)`` with kind in {"device", "cpu"}; raises when
+        calibration failed or the native codec does not build."""
+        if self._cpu is self:
+            return self, "cpu"  # CPU-ladder backend: nothing to route
+        if self.min_batch <= 0:
+            return self, "device"  # routing disabled: force the device
+        small = self._small()
+        if total < self.min_batch:
+            return small, "cpu"
+        with self._lock:
+            st, dev, nat = self._cal_state, self._dev, self._nat
+            if st == "done":
+                if dev.predict(total) <= nat.predict(total):
+                    return self, "device"
+                return small, "cpu"
+        if st == "failed":
+            raise self._calibration_failed()
+        self._maybe_schedule_calibration()
+        return small, "cpu"
+
+    def break_even_bytes(self) -> int | None:
+        """Bytes past which the device model predicts a win (None if flat)."""
+        with self._lock:
+            if not (self._dev.ready and self._nat.ready):
+                return None
+            inv = 1.0 / self._nat.rate - 1.0 / self._dev.rate
+            if inv <= 0:
+                return None
+            # 0 when the device model wins at every size (overhead
+            # below native's): never report a negative byte count
+            return max(0, int((self._dev.overhead - self._nat.overhead)
+                              / inv))
+
+    def _observe(self, device: bool, nbytes: int, secs: float) -> None:
+        with self._lock:
+            (self._dev if device else self._nat).observe(nbytes, secs)
+
+    # -- flushing ------------------------------------------------------------
+
+    def _take(self, batch: list, total: int):
+        """Count a flush and route it -> ``(codec, kind)``, or None after
+        resolving the batch with the routing error."""
+        self._last_flush = time.monotonic()
+        self.batched_fops += len(batch)
+        self.max_batch = max(self.max_batch, len(batch))
+        try:
+            codec, kind = self._route(total)
+        except Exception as e:
+            self._resolve(batch, None, e)
+            return None
+        if kind == "cpu" and codec is not self:
+            self.cpu_launches += 1
+        return codec, kind
+
+    def _submit(self, fn, loop, *args) -> None:
+        """Pool submit with an inline fallback: a batch still pending in
+        the window when close() shuts the pool (live reconfigure swaps
+        the codec) must NOT strand its awaiting fops — run the flush on
+        the loop thread instead."""
+        try:
+            self._pool.submit(fn, loop, *args)
+        except RuntimeError:  # pool shut down after close()
+            fn(loop, *args)
+
+    @staticmethod
+    def _resolve(batch, results, err) -> None:
+        for i, (_d, fut) in enumerate(batch):
+            if fut.done() or fut.cancelled():
+                continue
+            if err is not None:
+                fut.set_exception(err)
+            else:
+                fut.set_result(results[i])
 
     # -- encode ------------------------------------------------------------
 
@@ -119,10 +417,6 @@ class BatchingCodec(Codec):
         await asyncio.sleep(self.window)
         self._flush_encodes()
 
-    def _take(self, batch: list) -> None:
-        self.batched_fops += len(batch)
-        self.max_batch = max(self.max_batch, len(batch))
-
     def _flush_encodes(self) -> None:
         if self._enc_task is not None:
             self._enc_task.cancel()
@@ -130,28 +424,28 @@ class BatchingCodec(Codec):
         batch, self._enc_q = self._enc_q, []
         if not batch:
             return
-        self._take(batch)
-        self._submit(self._run_stripes, asyncio.get_running_loop(), batch,
-                     self.encode)
+        total = sum(d.size for d, _ in batch)
+        routed = self._take(batch, total)
+        if routed is not None:
+            self._submit(self._run_stripes, asyncio.get_running_loop(),
+                         batch, *routed, total, "encode")
 
-    def _submit(self, fn, loop, *args) -> None:
-        """Pool submit with an inline fallback: a batch still pending in
-        the window when close() shuts the pool (live reconfigure swaps
-        the codec) must NOT strand its awaiting fops — run the flush on
-        the loop thread instead."""
-        try:
-            self._pool.submit(fn, loop, *args)
-        except RuntimeError:  # pool shut down after close()
-            fn(loop, *args)
-
-    def _run_stripes(self, loop, batch, launch) -> None:
+    def _run_stripes(self, loop, batch, codec: Codec, kind: str,
+                     total: int, op: str) -> None:
         """Executes in the pool: concatenate stripe-major payloads, one
         launch (encode or parity delta), split the fragment columns back
-        per fop, resolve."""
+        per fop, resolve.  Encodes feed the timing models; parity-only
+        deltas would skew them low and are not observed."""
         try:
+            t0 = time.perf_counter()
             cat = batch[0][0] if len(batch) == 1 else \
                 np.concatenate([d for d, _ in batch])
-            frags = launch(cat)
+            if op == "encode":
+                frags = codec.encode(cat)
+                self._observe(kind == "device", total,
+                              time.perf_counter() - t0)
+            else:
+                frags = codec.encode_delta(cat)
             results, off = [], 0
             for d, _ in batch:
                 flen = d.size // self.k
@@ -162,16 +456,6 @@ class BatchingCodec(Codec):
         except Exception as e:
             loop.call_soon_threadsafe(self._resolve, batch, None, e)
 
-    @staticmethod
-    def _resolve(batch, results, err) -> None:
-        for i, (_d, fut) in enumerate(batch):
-            if fut.done() or fut.cancelled():
-                continue
-            if err is not None:
-                fut.set_exception(err)
-            else:
-                fut.set_result(results[i])
-
     # -- parity-delta encode -----------------------------------------------
 
     async def encode_delta_async(self, delta: np.ndarray,
@@ -179,7 +463,7 @@ class BatchingCodec(Codec):
         """Parity deltas for a stripe-aligned XOR delta; coalesced with
         concurrent calls exactly like ``encode_async`` (fragment-stream
         concatenation holds for the parity submatrix too — stripes are
-        independent)."""
+        independent), and routed on the same ladder."""
         delta = np.ascontiguousarray(delta, dtype=np.uint8).ravel()
         if delta.size % self.stripe_size:
             raise ValueError("delta length not a multiple of the stripe")
@@ -203,9 +487,11 @@ class BatchingCodec(Codec):
         batch, self._delta_q = self._delta_q, []
         if not batch:
             return
-        self._take(batch)
-        self._submit(self._run_stripes, asyncio.get_running_loop(), batch,
-                     self.encode_delta)
+        total = sum(d.size for d, _ in batch)
+        routed = self._take(batch, total)
+        if routed is not None:
+            self._submit(self._run_stripes, asyncio.get_running_loop(),
+                         batch, *routed, total, "delta")
 
     # -- decode ------------------------------------------------------------
 
@@ -235,14 +521,20 @@ class BatchingCodec(Codec):
         queues, self._dec_q = self._dec_q, {}
         loop = asyncio.get_running_loop()
         for rows, batch in queues.items():
-            self._take(batch)
-            self._submit(self._run_decode, loop, rows, batch)
+            total = sum(f.size for f, _ in batch)
+            routed = self._take(batch, total)
+            if routed is not None:
+                self._submit(self._run_decode, loop, rows, batch, *routed,
+                             total)
 
-    def _run_decode(self, loop, rows, batch) -> None:
+    def _run_decode(self, loop, rows, batch, codec: Codec, kind: str,
+                    total: int) -> None:
         try:
+            t0 = time.perf_counter()
             cat = batch[0][0] if len(batch) == 1 else \
                 np.concatenate([f for f, _ in batch], axis=1)
-            out = self.decode(cat, rows)
+            out = codec.decode(cat, rows)
+            self._observe(kind == "device", total, time.perf_counter() - t0)
             results, off = [], 0
             for f, _ in batch:
                 nbytes = f.shape[1] * self.k
@@ -258,16 +550,30 @@ class BatchingCodec(Codec):
         reconfigure replaces the codec and at graph fini — without it
         every rebuild leaks the two worker threads.  Queued flushes
         still run (their awaiters must resolve); threads exit after."""
+        if self._cal_timer is not None:
+            self._cal_timer.cancel()
+            self._cal_timer = None
         self._pool.shutdown(wait=False)
 
     def dump_stats(self) -> dict:
         with self._lock:
             launches = self.launches
+            dev, nat = (
+                {"overhead_s": m.overhead, "rate_MiB_s": m.rate / 2**20,
+                 "samples": m.samples} if m.ready else None
+                for m in (self._dev, self._nat))
+            cal = self._cal_state
         return {
             "backend": self.backend,
             "device": str(self.device) if self.device is not None else "host",
             "launches": launches,
+            "cpu_launches": self.cpu_launches,
             "batched_fops": self.batched_fops,
             "max_batch": self.max_batch,
             "window_s": self.window,
+            "min_batch_bytes": self.min_batch,
+            "calibration": cal,
+            "device_model": dev,
+            "native_model": nat,
+            "break_even_bytes": self.break_even_bytes(),
         }

@@ -18,9 +18,16 @@ backend        implementation
                plain PyTorch versions; only with ``device="cpu"``
 ``torch-mma``  the ``cuda-mma`` routes on CPU tensors; only with
                ``device="cpu"``
+``native``     the host's C++ AVX2 XOR kernels (``native/``, built
+               with ``g++`` at first use); encode walks the bit-matrix
+               rows, decode the CSE'd XOR program of its mask
+               (``gf256.DECODE_PROGRAMS``); raises when it does not
+               build (never becomes ``ref``)
 ``ref``        pure-NumPy bit-sliced oracle (ops/gf256.py)
 ``auto``       ``cuda``; raises when there is no card (it never falls
-               back to the CPU)
+               back to the CPU, nor to ``native``: the batching codec's
+               measured ladder is a route inside ops/batch.py, never
+               what ``auto`` resolves to)
 =============  =====================================================
 
 All backends are byte-exact against ``ref``.  The codec takes and
@@ -32,13 +39,16 @@ codec's own stream and waits for the result.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
 
 from . import gf256, gf256_cuda
 
-BACKENDS = ("cuda", "cuda-mma", "torch", "torch-mma", "ref")
+BACKENDS = ("cuda", "cuda-mma", "torch", "torch-mma", "native", "ref")
+#: backends that run on the host with NumPy arrays, no torch device
+HOST_BACKENDS = ("native", "ref")
 
 # -- unified-registry scrape (core/metrics.py): which backends the
 # live codecs resolved to ------------------------------------------------
@@ -63,24 +73,35 @@ _metrics.REGISTRY.register(
 
 def detect(requested: str = "auto") -> str:
     """Resolve a requested backend name: ``auto`` is ``cuda``; an
-    unknown name raises.  Whether a card is present is checked where
-    the device is resolved, and its absence raises there."""
+    unknown name raises, and so does ``native`` when its library does
+    not build here.  Whether a card is present is checked where the
+    device is resolved, and its absence raises there."""
     if requested == "auto":
         return "cuda"
     if requested not in BACKENDS:
         raise ValueError(f"unknown backend {requested!r}; one of "
                          f"{BACKENDS + ('auto',)}")
+    if requested == "native":
+        from .. import native
+
+        native.library()  # raises the build's error
     return requested
 
 
+@functools.cache
+def _encode_bits(k: int, n: int, systematic: bool) -> np.ndarray:
+    return gf256.expand_bitmatrix(gf256.generator_matrix(k, n, systematic))
+
+
 def resolve_device(backend: str, device=None) -> torch.device | None:
-    """The device a backend runs on: ``ref`` none (NumPy), ``torch`` and
-    ``torch-mma`` the CPU (and only when asked for), ``cuda`` and
-    ``cuda-mma`` a card (raises when there is none)."""
+    """The device a backend runs on: ``native`` and ``ref`` none (NumPy
+    on the host), ``torch`` and ``torch-mma`` the CPU (and only when
+    asked for), ``cuda`` and ``cuda-mma`` a card (raises when there is
+    none)."""
     dev = None if device is None else torch.device(device)
-    if backend == "ref":
+    if backend in HOST_BACKENDS:
         if dev is not None and dev.type != "cpu":
-            raise ValueError("the ref backend runs on the host only")
+            raise ValueError(f"the {backend} backend runs on the host only")
         return None
     if backend.startswith("torch"):
         if dev is None or dev.type != "cpu":
@@ -177,6 +198,11 @@ class Codec:
             return self._encode_systematic(data)
         if self.backend == "ref":
             return gf256.ref_encode(data, self.k, self.n)
+        if self.backend == "native":
+            from .. import native
+
+            return native.encode(data, self.k, self.n,
+                                 _encode_bits(self.k, self.n, False))
         with self._placed():
             return self._to_host(gf256_cuda.encode(
                 self._to_dev(data), self.k, self.n, self._form))
@@ -195,6 +221,11 @@ class Codec:
             return self._decode_systematic(frags, rows)
         if self.backend == "ref":
             return gf256.ref_decode(frags, rows, self.k)
+        if self.backend == "native":
+            from .. import native
+
+            return native.decode_program(
+                frags, self.k, gf256.decode_program(self.k, rows))
         with self._placed():
             return self._to_host(gf256_cuda.decode(
                 self._to_dev(frags), rows, self.k, self._form))
@@ -218,6 +249,11 @@ class Codec:
     def _encode_systematic(self, data: np.ndarray) -> np.ndarray:
         if self.backend == "ref":
             return gf256.ref_encode(data, self.k, self.n, systematic=True)
+        if self.backend == "native":
+            from .. import native
+
+            return native.encode(data, self.k, self.n,
+                                 _encode_bits(self.k, self.n, True))
         # the device computes (and the link carries) ONLY parity
         s = data.size // self.stripe_size
         out = np.empty((self.n, s * self.fragment_chunk), dtype=np.uint8)
@@ -247,6 +283,13 @@ class Codec:
                 f"{self.stripe_size}")
         if self.backend == "ref":
             return gf256.ref_parity(delta, self.k, self.n)
+        if self.backend == "native":
+            from .. import native
+
+            # gf_encode walks whatever (rows, k*8) bit-matrix it is
+            # handed: the parity submatrix with n-k output fragments
+            return native.encode(delta, self.k, self.n - self.k,
+                                 gf256.parity_bits_cached(self.k, self.n))
         return self._parity(delta)
 
     def reassemble(self, bufs, rows, frag_len: int) -> np.ndarray | None:
@@ -294,6 +337,11 @@ class Codec:
             return out.reshape(-1)
         if self.backend == "ref":
             return gf256.ref_decode(frags, rows, k, systematic=True)
+        if self.backend == "native":
+            from .. import native
+
+            return native.decode_program(
+                frags, k, gf256.decode_program(k, rows, True))
         # degraded: reconstruct ONLY the missing data rows on the device
         with self._placed():
             rec = self._to_host(gf256_cuda.fused_reconstruct(

@@ -28,6 +28,9 @@ planes each output plane's bit-matrix row selects (ops/gf256_cuda.py).
 from __future__ import annotations
 
 import functools
+import threading
+from collections import OrderedDict
+from typing import NamedTuple
 
 import numpy as np
 
@@ -327,3 +330,310 @@ def ref_decode(frags: np.ndarray, rows, k: int,
     x = frags_to_planes(frags, k)  # (S, k*8, 64)
     y = _xor_matmul_planes(bbits, x)  # (S, k*8, 64)
     return y.reshape(x.shape[0] * k * CHUNK_SIZE).copy()
+
+
+class XorProgram(NamedTuple):
+    """A compiled straight-line XOR program computing ``y = abits @ x mod 2``.
+
+    ``ops`` is a tuple of ``(dst, a, b)`` meaning ``t[dst] = t[a] ^ t[b]``
+    (``t[0..n_inputs-1]`` are the input planes, new ids are dense from
+    ``n_inputs`` up — ``dst == n_inputs + op_index`` always holds);
+    ``outs[r]`` is the tuple of var ids whose XOR is output row r (often
+    a single shared id).  This tuple IS the compiled artifact a
+    program-consuming backend takes: the native kernel walks it directly
+    (gf_decode_prog), after :func:`schedule_program`.
+    """
+
+    ops: tuple[tuple[int, int, int], ...]
+    outs: tuple[tuple[int, ...], ...]
+    n_inputs: int
+
+    @property
+    def xor_count(self) -> int:
+        """Total 64-byte-word XORs per stripe the program costs."""
+        return len(self.ops) + sum(max(len(o) - 1, 0) for o in self.outs)
+
+
+def schedule_program(prog: XorProgram) -> tuple[np.ndarray, int]:
+    """Register-allocate a program for the native block walker: returns
+    ``(code, n_slots)`` — a flat int32 instruction stream over a slab of
+    ``n_slots`` reusable variable slots.
+
+    The naive walk keeps every op's result live to the end, so the var
+    slab at 16+4 is ~550 KiB per 8-stripe block — it thrashes L2 and
+    LOSES to the row-select kernel despite 2.8x fewer word-XORs (the
+    row-select scratch is 8 KiB and lives in L1).  Keeping results live
+    until their output rows assemble doesn't fix it either (Paar's
+    greedy op order finishes most rows late: peak live measured 874 of
+    1067 vars at 16+4).  So the schedule is TRANSPOSED, like the fused
+    kernels' stripe-major walk: every output row gets a fixed
+    accumulator slot, each value is scattered (XOR) into its rows'
+    accumulators the moment it is computed and freed at its last use —
+    the live set becomes accumulators + inputs + in-flight CSE chains,
+    small enough to stay cache-resident.
+
+    Instructions (opcode-first):
+    ``[0, dst, a, b]``      slot dst = slot a ^ slot b
+    ``[1, row, nv, v...]``  emit output row = XOR of nv slots (0 -> zeros)
+    ``[2, slot, f, p]``     load plane p of input fragment f into slot
+    ``[3, src, n, s...]``   acc: slot s_i ^= slot src, for n slots
+    ``[4, src, n, s...]``   init: slot s_i = copy of slot src (first touch)
+
+    Accumulator for output row r is slot r (ids below ``len(outs)`` are
+    reserved); rows emit as ``[1, r, 1, r]`` at the end, empty rows as
+    ``[1, r, 0]``.
+    """
+    c = prog.n_inputs
+    n_rows = len(prog.outs)
+    n_vars = c + len(prog.ops)
+    rows_of: dict[int, list[int]] = {}
+    for r, o in enumerate(prog.outs):
+        for v in o:
+            rows_of.setdefault(v, []).append(r)
+    op_uses = [0] * n_vars  # uses as an OPERAND of later ops
+    for _d, a, b in prog.ops:
+        op_uses[a] += 1
+        op_uses[b] += 1
+    slot = [-1] * n_vars
+    free: list[int] = []
+    code: list[int] = []
+    touched = [False] * n_rows
+    n_slots = n_rows
+
+    def alloc() -> int:
+        nonlocal n_slots
+        if free:
+            return free.pop()
+        n_slots += 1
+        return n_slots - 1
+
+    def scatter(v: int) -> None:
+        """XOR var v's value into every output accumulator that uses it
+        directly (copy on a row's first contribution)."""
+        init = [r for r in rows_of.get(v, ()) if not touched[r]]
+        accum = [r for r in rows_of.get(v, ()) if touched[r]]
+        if init:
+            code.extend((4, slot[v], len(init), *init))
+            for r in init:
+                touched[r] = True
+        if accum:
+            code.extend((3, slot[v], len(accum), *accum))
+
+    def release(v: int) -> None:
+        if op_uses[v] == 0 and slot[v] >= 0:
+            free.append(slot[v])
+            slot[v] = -1
+
+    # inputs: load each used plane once, scatter its direct out
+    # contributions immediately; it stays live only while later ops
+    # still consume it
+    for v in range(c):
+        if op_uses[v] == 0 and v not in rows_of:
+            continue
+        slot[v] = alloc()
+        f, p = divmod(v, GF_BITS)
+        code.extend((2, slot[v], f, p))
+        scatter(v)
+        release(v)
+    for dst, a, b in prog.ops:
+        # dst gets its slot BEFORE the operands are released: the C
+        # walker's xor2_w promises (__restrict) dst aliases neither
+        d = alloc()
+        code.extend((0, d, slot[a], slot[b]))
+        slot[dst] = d
+        op_uses[a] -= 1
+        op_uses[b] -= 1
+        release(a)
+        release(b)
+        scatter(dst)
+        release(dst)
+    for r in range(n_rows):
+        code.extend((1, r, 1, r) if touched[r] else (1, r, 0))
+    return np.asarray(code, dtype=np.int32), n_slots
+
+
+def build_xor_program(abits: np.ndarray) -> XorProgram:
+    """Greedy common-subexpression elimination over a GF(2) bit-matrix
+    (Paar's algorithm): returns a straight-line XOR program computing
+    ``y = abits @ x mod 2`` with shared intermediates.
+
+    Reed-Solomon bit-matrices are dense (tens of terms per output
+    plane) but massively share pair subexpressions; the raw per-row
+    XOR chains the reference JITs (ec-code-avx.c unrolled chains) redo
+    each shared pair per row.  The returned program cuts total XOR
+    count ~2-3x, which is the whole game for XOR-bound wide-k
+    kernels.  Uncached — callers go through :func:`encode_program` /
+    :func:`decode_program` etc., which hold the compiled artifacts in
+    per-mask LRUs.
+    """
+    a = np.ascontiguousarray(abits, dtype=np.uint8)
+    r, c = a.shape
+    # incidence (rows, vars), preallocated for intermediates; the pair
+    # co-occurrence matrix M is maintained INCREMENTALLY — extracting
+    # pair (i, j) only changes M's rows/columns i, j and the new var's
+    # (other pairs' co-occurrence is untouched), so each iteration
+    # recomputes 3 mat-vecs instead of the full C^2 matmul (which made
+    # the 16+4 build take minutes)
+    cap = c + int(a.sum())
+    cols = np.zeros((r, cap), dtype=bool)
+    cols[:, :c] = a.astype(bool)
+    m = np.zeros((cap, cap), dtype=np.int32)
+    live = c
+    m[:c, :c] = cols[:, :c].T.astype(np.int32) @ \
+        cols[:, :c].astype(np.int32)
+    np.fill_diagonal(m, 0)
+    ops: list[tuple[int, int, int]] = []
+    while True:
+        sub = m[:live, :live]
+        best = int(sub.argmax())
+        i, j = divmod(best, live)
+        if sub[i, j] < 2:
+            break  # no pair shared by 2+ rows: chains are optimal now
+        new = live
+        both = cols[:, i] & cols[:, j]
+        cols[both, i] = False
+        cols[both, j] = False
+        cols[:, new] = both
+        live += 1
+        ci = cols[:, :live].astype(np.int32)
+        for v in (i, j, new):
+            mv = ci.T @ ci[:, v]
+            mv[v] = 0
+            m[v, :live] = mv
+            m[:live, v] = mv
+        ops.append((new, int(i), int(j)))
+    outs = tuple(tuple(int(v) for v in np.nonzero(row[:live])[0])
+                 for row in cols)
+    return XorProgram(tuple(ops), outs, c)
+
+
+class ProgramLRU:
+    """Per-key LRU of compiled :class:`XorProgram` artifacts.
+
+    The reference keeps an LRU of inverted matrices keyed by the
+    surviving-fragment bitmask (ec-method.c:200-245); caching only the
+    bit-matrix leaves every backend to redo CSE (seconds at k=16) and
+    recompile per request.  This cache holds the COMPILED program per
+    mask instead — the mask key is ``(k, rows, ...)``, exactly the
+    reference's keying with the geometry made explicit.
+
+    Thread-safe (decode flushes run in batch.py's worker pool).  A miss
+    builds outside the lock, so concurrent first requests for distinct
+    masks don't serialize behind one k=16 CSE pass; duplicate concurrent
+    builds of the same mask are wasted work, never wrong.  ``maxsize``
+    is a plain attribute so tests can shrink it to force eviction.
+    """
+
+    def __init__(self, builder, maxsize: int = 128):
+        self._builder = builder
+        self.maxsize = maxsize
+        self._lock = threading.Lock()
+        self._entries: OrderedDict[tuple, XorProgram] = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def __call__(self, *key) -> XorProgram:
+        with self._lock:
+            prog = self._entries.get(key)
+            if prog is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                return prog
+            self.misses += 1
+        prog = self._builder(*key)
+        with self._lock:
+            self._entries[key] = prog
+            self._entries.move_to_end(key)
+            while len(self._entries) > self.maxsize:
+                self._entries.popitem(last=False)
+                self.evictions += 1
+        return prog
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def __contains__(self, key: tuple) -> bool:
+        with self._lock:
+            return key in self._entries
+
+    def cache_clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def cache_info(self) -> dict:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "evictions": self.evictions,
+                    "size": len(self._entries), "maxsize": self.maxsize}
+
+
+@functools.lru_cache(maxsize=64)
+def encode_program(k: int, n: int, systematic: bool = False) -> XorProgram:
+    """CSE'd XOR program of the full (n, k) generator — one per geometry
+    (plain lru_cache: the key space is tiny, unlike decode masks)."""
+    return build_xor_program(
+        expand_bitmatrix(generator_matrix(k, n, systematic)))
+
+
+@functools.lru_cache(maxsize=64)
+def parity_program(k: int, n: int) -> XorProgram:
+    """Program of the systematic generator's parity rows only."""
+    return build_xor_program(parity_bits_cached(k, n))
+
+
+def _build_decode_program(k: int, rows: tuple[int, ...],
+                          systematic: bool = False) -> XorProgram:
+    return build_xor_program(decode_bits_cached(k, rows, systematic))
+
+
+def _build_reconstruct_program(k: int, rows: tuple[int, ...],
+                               wanted: tuple[int, ...]) -> XorProgram:
+    return build_xor_program(reconstruct_bits_cached(k, rows, wanted))
+
+
+#: Per-surviving-mask LRU of compiled decode programs — THE decode-side
+#: analog of the reference's inverted-matrix LRU, shared by every
+#: backend.  Key: ``(k, rows_tuple, systematic)``.
+DECODE_PROGRAMS = ProgramLRU(_build_decode_program, maxsize=128)
+
+#: Per-(mask, wanted) LRU of systematic partial-decode programs — a
+#: degraded systematic read compiles (and caches) ONLY the missing data
+#: rows' program.  Key: ``(k, rows_tuple, wanted_tuple)``.
+RECONSTRUCT_PROGRAMS = ProgramLRU(_build_reconstruct_program, maxsize=128)
+
+
+def decode_program(k: int, rows, systematic: bool = False) -> XorProgram:
+    """Compiled decode program for the surviving-fragment mask ``rows``."""
+    return DECODE_PROGRAMS(k, tuple(int(x) for x in rows), systematic)
+
+
+def reconstruct_program(k: int, rows, wanted) -> XorProgram:
+    """Compiled systematic partial-decode program: k survivors ``rows``
+    -> only the ``wanted`` missing data rows."""
+    return RECONSTRUCT_PROGRAMS(k, tuple(int(x) for x in rows),
+                                tuple(int(x) for x in wanted))
+
+
+def run_xor_program(prog: XorProgram, x: np.ndarray) -> np.ndarray:
+    """Execute a program on stripe-major plane words (S, C, 64) ->
+    (S, R, 64): the NumPy oracle for program-consuming backends (tests
+    cross-check every backend's program execution against plain
+    ``_xor_matmul_planes`` on the same matrix)."""
+    s = x.shape[0]
+    if x.shape[1] != prog.n_inputs:
+        raise ValueError(f"plane rows {x.shape[1]} != program inputs "
+                         f"{prog.n_inputs}")
+    t = list(np.swapaxes(x, 0, 1))  # C views of (S, 64)
+    for _dst, a, b in prog.ops:
+        t.append(t[a] ^ t[b])
+    out = np.zeros((s, len(prog.outs), WORD_SIZE), dtype=np.uint8)
+    for r, o in enumerate(prog.outs):
+        if not o:
+            continue
+        acc = t[o[0]]
+        for v in o[1:]:
+            acc = acc ^ t[v]
+        out[:, r, :] = acc
+    return out

@@ -46,7 +46,7 @@ def test_encode_decode_match_jax_ref(k, r, systematic, backend):
         assert np.array_equal(got, data)
 
 
-@pytest.mark.parametrize("backend", ["torch", "torch-mma"])
+@pytest.mark.parametrize("backend", ["torch", "torch-mma", "native"])
 @pytest.mark.parametrize("systematic", [False, True])
 def test_every_4p2_mask(systematic, backend):
     port, ref = _pair(K, R, systematic, backend)
@@ -55,6 +55,30 @@ def test_every_4p2_mask(systematic, backend):
     for rows in itertools.combinations(range(N), K):
         got = port.decode(frags[list(rows)], rows)
         assert np.array_equal(got, data), rows
+
+
+@pytest.mark.parametrize("systematic", [False, True])
+@pytest.mark.parametrize("k,r", [(4, 2), (8, 4), (16, 4)])
+def test_native_matches_jax_native(k, r, systematic):
+    """The port's native codec against the JAX package's native codec:
+    encode, decode (the CSE'd program of the mask) and the delta."""
+    port = Codec(k, r, "native", systematic=systematic)
+    jax = JaxCodec(k, r, "native", systematic=systematic)
+    assert port.device is None
+    data = _rand(129 * k * 512, seed=k + 20 * systematic)
+    frags = port.encode(data)
+    assert np.array_equal(frags, jax.encode(data))
+    for seed in range(3):
+        rows = sorted(np.random.default_rng(seed + 5).choice(
+            k + r, k, replace=False).tolist())
+        got = port.decode(frags[rows], rows)
+        assert np.array_equal(got, jax.decode(frags[rows], rows))
+        assert np.array_equal(got, data)
+    if systematic:
+        assert np.array_equal(port.encode_delta(data),
+                              jax.encode_delta(data))
+    with pytest.raises(ValueError):
+        Codec(k, r, "native", device="cuda")  # the host only
 
 
 def test_encode_delta_matches_jax_ref():
@@ -110,7 +134,8 @@ def test_backends_never_pick_the_cpu_implicitly():
 
 
 def test_batching_coalesces_encodes_and_groups_decodes():
-    codec = BatchingCodec(K, R, "torch", device="cpu", window=0.005)
+    codec = BatchingCodec(K, R, "torch", device="cpu", window=0.005,
+                          min_batch=0)
     ref = JaxCodec(K, R, "ref")
     datas = [_rand(STRIPE * (i + 1), i) for i in range(8)]
 
@@ -138,7 +163,7 @@ def test_batching_coalesces_encodes_and_groups_decodes():
 
 def test_batching_delta_queue():
     codec = BatchingCodec(K, R, "torch", device="cpu", window=0.005,
-                          systematic=True)
+                          min_batch=0, systematic=True)
     ref = JaxCodec(K, R, "ref", systematic=True)
     deltas = [_rand(STRIPE * 2, 20 + i) for i in range(4)]
 
@@ -168,7 +193,7 @@ def test_torch_mma_batching_and_delta(systematic):
     same-mask decodes, plus the systematic delta (on the fused parity
     kernel's plain version, as pallas-mxu rides the fused kernels)."""
     codec = BatchingCodec(K, R, "torch-mma", device="cpu", window=0.005,
-                          systematic=systematic)
+                          min_batch=0, systematic=systematic)
     ref = JaxCodec(K, R, "ref", systematic=systematic)
     datas = [_rand(STRIPE * (i + 1), 30 + i) for i in range(4)]
 

@@ -42,7 +42,7 @@ def _down(top, bricks):
 
 def _port(base, down=()):
     g = Graph.construct(ec_volfile(base, N, R, groups=GROUPS, options={
-        "cpu-extensions": "torch-mma"}))
+        "cpu-extensions": "torch-mma", "stripe-cache-min-batch": 0}))
     c = SyncClient(g)
     c.mount()
     assert isinstance(g.top, DistributeLayer)

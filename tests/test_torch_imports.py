@@ -32,11 +32,22 @@ for backend in ("auto", "cuda-mma"):
         codec[backend] = "ran"
     except RuntimeError as e:
         codec[backend] = "raised: " + str(e)
+# the measured ladder: a small flush routes to the native codec
+import asyncio
+import numpy as np
+from glusterfs_tpu_torch.ops.batch import BatchingCodec
+
+ladder = BatchingCodec(4, 2, "torch", device="cpu", min_batch=1 << 20)
+frags = asyncio.run(ladder.encode_async(np.zeros(4 * 512, np.uint8)))
+routed = {"cpu_launches": ladder.cpu_launches, "launches": ladder.launches,
+          "small": ladder._small().backend, "shape": list(frags.shape)}
+ladder.close()
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                 or m.startswith("jaxlib.") or m == "glusterfs_tpu"
                 or m.startswith("glusterfs_tpu."))
 print(json.dumps({"modules": mods, "leaked": leaked, "codec": codec,
+                  "routed": routed,
                   "ec": ec.__module__ + "." + ec.__name__,
                   "dht": dht.__module__ + "." + dht.__name__,
                   "posix": posix.__module__}))
@@ -54,6 +65,9 @@ def test_port_imports_no_jax_and_never_runs_on_cpu_implicitly():
     assert "glusterfs_tpu_torch.cluster.ec" in res["modules"]
     assert "glusterfs_tpu_torch.ops.gf256_cuda" in res["modules"]
     assert "glusterfs_tpu_torch.cluster.dht" in res["modules"]
+    assert "glusterfs_tpu_torch.native" in res["modules"]
+    assert res["routed"] == {"cpu_launches": 1, "launches": 0,
+                             "small": "native", "shape": [6, 512]}
     assert res["leaked"] == []
     assert res["ec"] == "glusterfs_tpu_torch.cluster.ec.DisperseLayer"
     assert res["dht"] == "glusterfs_tpu_torch.cluster.dht.DistributeLayer"

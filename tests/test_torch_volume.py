@@ -26,9 +26,12 @@ def _rand(n, seed):
                                                 dtype=np.uint8).tobytes()
 
 
-def _port(base, systematic="off", down=(), k=K, r=R):
+def _port(base, systematic="off", down=(), k=K, r=R, backend="torch"):
+    # min-batch 0 pins every flush to the kernels' plain versions (the
+    # native CPU ladder is held in test_torch_batch.py)
     g = Graph.construct(ec_volfile(base, k + r, r, options={
-        "cpu-extensions": "torch", "systematic": systematic}))
+        "cpu-extensions": backend, "systematic": systematic,
+        "stripe-cache-min-batch": 0}))
     c = SyncClient(g)
     c.mount()
     assert isinstance(g.top, DisperseLayer)
@@ -131,6 +134,32 @@ def test_fragments_identical_and_bricks_cross_readable(
     assert _read_all(c, files) == want
     c.close()
     c, _ = _jax(pdir, systematic, down=port_down, k=k, r=r)
+    assert _read_all(c, files) == want
+    c.close()
+
+
+@pytest.mark.parametrize("systematic", ["off", "on"])
+def test_native_volume_bricks_identical_to_jax(tmp_path, systematic):
+    """A volume on ``cpu-extensions native`` (the host's AVX2 codec)
+    leaves the JAX package's bricks, and reads them back degraded."""
+    files = _files(K)
+    want = _expected(files)
+    pdir, jdir = tmp_path / "port", tmp_path / "jax"
+    c, ec = _port(pdir, systematic, backend="native")
+    assert ec.codec.backend == "native" and ec.codec.device is None
+    _write_all(c, files)
+    assert _read_all(c, files) == want
+    c.close()
+    c, _ = _jax(jdir, systematic)
+    _write_all(c, files)
+    c.close()
+    for i in range(N):
+        for path in files:
+            name = path.lstrip("/")
+            assert (pdir / f"brick{i}" / name).read_bytes() == \
+                (jdir / f"brick{i}" / name).read_bytes(), (i, path)
+    _spoil(pdir, (0, 3))
+    c, _ = _port(pdir, systematic, down=(0, 3), backend="native")
     assert _read_all(c, files) == want
     c.close()
 
