@@ -47,8 +47,6 @@ import torch
 from . import gf256, gf256_cuda
 
 BACKENDS = ("cuda", "cuda-mma", "torch", "torch-mma", "native", "ref")
-#: backends that run on the host with NumPy arrays, no torch device
-HOST_BACKENDS = ("native", "ref")
 
 # -- unified-registry scrape (core/metrics.py): which backends the
 # live codecs resolved to ------------------------------------------------
@@ -99,7 +97,7 @@ def resolve_device(backend: str, device=None) -> torch.device | None:
     asked for), ``cuda`` and ``cuda-mma`` a card (raises when there is
     none)."""
     dev = None if device is None else torch.device(device)
-    if backend in HOST_BACKENDS:
+    if backend in ("native", "ref"):
         if dev is not None and dev.type != "cpu":
             raise ValueError(f"the {backend} backend runs on the host only")
         return None
