@@ -4,6 +4,9 @@
     python3 chip_smoke.py            # the whole run (one card)
     python3 chip_smoke.py --profile  # the whole run, the served phases
                                      # under torch.profiler (device share)
+    python3 chip_smoke.py --ladder-ab  # only served-4+2 and
+                                     # served-4+2-ladder, in the order
+                                     # pinned, ladder, ladder, pinned
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -57,29 +60,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    fragment file must hash as before the wipe, carry the good bricks'
    ``trusted.ec.version`` and ``size``, ``heal_info`` must report no bad
    brick, and with two other bricks spoiled and down every file must
-   read back exactly;
+   read back exactly.  Both volumes keep every default option: no
+   calibration is forced, and the heal must launch the kernels;
 10. ``served-4+2-ladder``: the same traffic on a 4+2 volume with the
    default ``stripe-cache-min-batch`` (256KB), its codecs calibrated
    (``ensure_calibrated()``) before the timed window: both fitted
    models, the break-even and the flushes per route (card or the native
-   AVX2 codec);
+   AVX2 codec), each window's flushes by size and route;
 11. ``native-vs-card``: ``Codec(4, 2, "native")`` against
    ``Codec(4, 2, "cuda")`` on 4+2 encode and decode of 1 MiB and 64 MiB
    (host clock, copies included), beside the host's CPU model.
 
-Phases 5-8 pin ``stripe-cache-min-batch 0`` (every flush on the card),
-and so does the heal phase, which must show the kernels' launches.  The
-launch counters are set to 0 just before each path (phases 4-10) and
-read just after it (the ladder phase takes its calibration's launches
-back out); a kernel of the path that was never launched fails the
-run.  The line before the last is the ``kernels`` summary,
-then the card's name and power limit, and the last line
-``{"ok": true, "device": {...}}``.
+Phases 5-8 pin ``stripe-cache-min-batch 0`` (every flush on the card);
+the heal and ladder phases keep the volume's default.  Every served
+phase reports its windows' flushes: count, bytes and seconds per route,
+and the flush sizes.  The launch counters are set to 0 just before
+each path (phases 4-10) and read just after it (the ladder phase takes
+its calibration's launches back out); a kernel of the path that was
+never launched fails the run.  The line before the last is the
+``kernels`` summary, then the card's name and power limit, and the last
+line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import hashlib
 import itertools
 import json
@@ -600,7 +606,8 @@ def _payload(g, nbytes: int) -> bytes:
 async def _mount(base: Path, options: dict, fresh: bool, groups: int,
                  n: int, r: int):
     """Mount the volume of ``groups`` (n, r) disperse groups; returns the
-    client and its disperse layers (one per group)."""
+    client and its disperse layers (one per group).  An option given as
+    None keeps the volume's default."""
     from glusterfs_tpu_torch.api.glfs import Client
     from glusterfs_tpu_torch.core.graph import Graph
     from glusterfs_tpu_torch.utils.volspec import ec_volfile
@@ -608,11 +615,12 @@ async def _mount(base: Path, options: dict, fresh: bool, groups: int,
     if fresh:
         shutil.rmtree(base, ignore_errors=True)
         base.mkdir(parents=True)
-    c = Client(Graph.construct(ec_volfile(base, n, r, groups=groups,
-                                          options={
-        "cpu-extensions": "auto", "stripe-cache": "on",
-        "stripe-cache-window": 2000, "stripe-cache-min-batch": 0,
-        **options})))
+    options = {"cpu-extensions": "auto", "stripe-cache": "on",
+               "stripe-cache-window": 2000, "stripe-cache-min-batch": 0,
+               **options}
+    c = Client(Graph.construct(ec_volfile(
+        base, n, r, groups=groups,
+        options={k: v for k, v in options.items() if v is not None})))
     await c.mount()
     top = c.graph.top
     return c, [top] if groups == 1 else list(top.children)
@@ -650,6 +658,44 @@ def _spoil(base: Path, bricks) -> None:
                     head = np.frombuffer(f.read(4 * MiB), dtype=np.uint8)
                     f.seek(0)
                     f.write((~head).tobytes())
+
+
+def _flush_log(ecs) -> list:
+    """Log every async flush of the ``ecs`` codecs as (bytes, route,
+    seconds): each codec's ``_observe``, which every flush calls once
+    with its route and host-clock time, is wrapped on the instance."""
+    log = []
+    for ec in ecs:
+        def logged(device, nbytes, secs, observe=ec.codec._observe):
+            log.append((nbytes, "device" if device else "cpu", secs))
+            observe(device, nbytes, secs)
+        ec.codec._observe = logged
+    return log
+
+
+def _flush_split(log) -> dict:
+    """Per route: flushes, bytes, summed seconds and flush sizes
+    (bytes: count)."""
+    out = {}
+    for route in ("device", "cpu"):
+        rows = [(b, t) for b, r, t in log if r == route]
+        out[route] = {"flushes": len(rows), "bytes": sum(b for b, _ in rows),
+                      "secs": sum(t for _, t in rows),
+                      "sizes": dict(sorted(collections.Counter(
+                          b for b, _ in rows).items()))}
+    return out
+
+
+async def _settled(ecs) -> None:
+    """After an unmount, wait for a background calibration of the
+    ``ecs`` codecs to end, so that none of its launches lands in a later
+    phase's counts."""
+    deadline = time.monotonic() + 60
+    while any(ec.codec.dump_stats()["calibration"] == "running"
+              for ec in ecs):
+        if time.monotonic() > deadline:
+            raise AssertionError("a calibration did not end")
+        await asyncio.sleep(0.01)
 
 
 def _since(before: dict) -> dict:
@@ -700,12 +746,14 @@ async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
     the ``down`` bricks (global indices: brick i is child i % n of group
     i // n), remount with them down and read everything again.  With
     ``calibrate``, each mount's codecs are calibrated before its timed
-    window (:func:`_calibrate`)."""
+    window (:func:`_calibrate`).  Each window's flushes are reported per
+    route (:func:`_flush_split`)."""
     backend = options.get("cpu-extensions", "auto").replace("auto", "cuda")
     c, ecs = await _mount(base, options, fresh=True, groups=groups, n=n,
                           r=r)
     try:
         models = await _calibrate(ecs) if calibrate else None
+        log = _flush_log(ecs)
         at_start = dict(gc.LAUNCHES)
         files, write = await _write_files(c, g)
         if options.get("systematic") == "on":
@@ -721,9 +769,12 @@ async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
                 raise AssertionError(f"no parity-delta write: "
                                      f"{ecs[0].write_path}")
         on_write = _since(at_start)
+        written = len(log)
         at_read = dict(gc.LAUNCHES)
         healthy = await _read_all(c, files)
         on_read = _since(at_read)
+        flushes = {"write": _flush_split(log[:written]),
+                   "healthy_read": _flush_split(log[written:])}
         stats = [ec.codec.dump_stats() for ec in ecs]
         write_path = [dict(ec.write_path) for ec in ecs]
     finally:
@@ -750,9 +801,11 @@ async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
         for i in down:
             ecs[i // n].set_child_up(i % n, False)
         degraded_models = await _calibrate(ecs) if calibrate else None
+        log = _flush_log(ecs)
         at_degraded = dict(gc.LAUNCHES)
         degraded = await _read_all(c, files)
         on_degraded = _since(at_degraded)
+        flushes["degraded_read"] = _flush_split(log)
         dstats = [ec.codec.dump_stats() for ec in ecs]
     finally:
         await c.unmount()
@@ -763,7 +816,7 @@ async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
             "write_path": write_path, "codec": stats,
             "degraded_codec": dstats, "launches_write": on_write,
             "launches_healthy_read": on_read,
-            "launches_degraded_read": on_degraded,
+            "launches_degraded_read": on_degraded, "flushes": flushes,
             **({"models": models, "degraded_models": degraded_models}
                if calibrate else {})}
 
@@ -841,13 +894,16 @@ async def _heal_volume(base: Path, g, systematic: str,
     the big one alone).  Then every healed fragment file must hash as
     before, carry the good bricks' version and size, ``heal_info`` must
     report no bad brick, and with the ``down`` bricks spoiled and down
-    every file must read back exactly."""
-    options = {"systematic": systematic}
+    every file must read back exactly.  The volume keeps every default
+    option (``stripe-cache-min-batch`` 256KB) and no calibration is
+    forced: the path a volume takes as created."""
+    options = {"systematic": systematic, "stripe-cache-min-batch": None}
     c, ecs = await _mount(base, options, fresh=True, groups=1, n=6, r=2)
     try:
         files, write = await _write_files(c, g)
     finally:
         await c.unmount()
+    await _settled(ecs)
     names = [p.lstrip("/") for p in files]
     before = {(i, nm): _sha256(base / f"brick{i}" / nm)
               for i in wiped for nm in names}
@@ -861,6 +917,7 @@ async def _heal_volume(base: Path, g, systematic: str,
                 raise AssertionError(f"{p}: heal_info before the heal: "
                                      f"{info}")
         small = [p for p in files if p != "/big"]
+        log = _flush_log([ec])
         torch.cuda.synchronize()
         at_heal = dict(gc.LAUNCHES)
         t0 = time.perf_counter()
@@ -869,6 +926,7 @@ async def _heal_volume(base: Path, g, systematic: str,
         torch.cuda.synchronize()
         heal_s = time.perf_counter() - t0
         on_heal = _since(at_heal)
+        heal_flushes = _flush_split(log)
         for p, rr in zip(small + ["/big"], res):
             if sorted(rr["healed"]) != sorted(wiped) or not rr["stable"]:
                 raise AssertionError(f"{p}: heal_file {rr}")
@@ -885,6 +943,9 @@ async def _heal_volume(base: Path, g, systematic: str,
         stats = ec.codec.dump_stats()
     finally:
         await c.unmount()
+    await _settled([ec])
+    if stats["min_batch_bytes"] != 256 * 1024:
+        raise AssertionError(f"not the default min-batch: {stats}")
     after = {(i, nm): _sha256(base / f"brick{i}" / nm)
              for i in wiped for nm in names}
     if after != before:
@@ -898,20 +959,24 @@ async def _heal_volume(base: Path, g, systematic: str,
         degraded = await _read_all(c, files)
     finally:
         await c.unmount()
+    await _settled([ec])
     healed_mib = sum(map(len, files.values())) / MiB
     return {"systematic": systematic, "bricks_wiped": list(wiped),
             "bricks_down_after": list(down), "files": len(files),
             "healed_mib": healed_mib, "heal_s": heal_s,
             "heal_mib_s": healed_mib / heal_s, "write_mib_s": write,
             "degraded_read_mib_s": degraded, "launches_heal": on_heal,
-            "fragments_hashed": len(before), "codec": stats}
+            "heal_flushes": heal_flushes, "fragments_hashed": len(before),
+            "codec": stats}
 
 
 async def served_heal(base: Path, g) -> dict:
     """Self-heal after a brick replacement (``BASELINE.json`` config 4,
     tests/basic/ec/ec-heal.t): a plain 4+2 volume (bricks 0 and 3 wiped;
     heal decodes then encodes) and a systematic one (bricks 1 and 5; heal
-    reconstructs the lost data row, then computes parity)."""
+    reconstructs the lost data row, then computes parity), each at the
+    volume's default options: the heal must launch the kernels without a
+    forced calibration."""
     plain = await _heal_volume(base / "plain", g, "off", (0, 3), (1, 4))
     syst = await _heal_volume(base / "systematic", g, "on", (1, 5), (0, 4))
     for vol, names in ((plain, ("fused_decode", "fused_encode")),
@@ -930,8 +995,10 @@ async def served_ladder(base: Path, g) -> dict:
     native codec by the calibrated models.  The route split is reported,
     not asserted."""
     res = await _serve(base, g, {"systematic": "off",
-                                 "stripe-cache-min-batch": "256KB"},
+                                 "stripe-cache-min-batch": None},
                        down=(0, 3), calibrate=True)
+    if res["codec"][0]["min_batch_bytes"] != 256 * 1024:
+        raise AssertionError(f"not the default min-batch: {res['codec']}")
     res["routes"] = {
         "write_and_healthy_read": {k: res["codec"][0][k] for k in (
             "launches", "cpu_launches", "batched_fops")},
@@ -1039,6 +1106,30 @@ def served(name: str, coro_fn, base: Path, g, card: str,
     return launches, res
 
 
+def ladder_ab(card: str) -> int:
+    """``--ladder-ab``: ``served-4+2`` (every flush pinned to the card)
+    and ``served-4+2-ladder`` in the order pinned, ladder, ladder,
+    pinned, in one process: the ladder's rates against the card alone's,
+    each at both ends of the run.  Prints a summary line and no kernel
+    checks."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    base = ROOT / "_smoke_bricks"
+    runs = []
+    try:
+        for name, fn in (("served-4+2", served_plain),
+                         ("served-4+2-ladder", served_ladder),
+                         ("served-4+2-ladder", served_ladder),
+                         ("served-4+2", served_plain)):
+            _, res = served(name, fn, base / "ab", g, card)
+            runs.append({"phase": name, **{k: res[k] for k in (
+                "write_mib_s", "healthy_read_mib_s", "degraded_read_mib_s")}})
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    emit("ladder-ab", ok=True, card=card, runs=runs)
+    return 0
+
+
 def main() -> int:
     profile = "--profile" in sys.argv[1:]
     started = time.perf_counter()
@@ -1058,6 +1149,8 @@ def main() -> int:
          xor_resources=resources(lib, r"layout_xorILi(\d+)E", "RB={}"),
          xor_blocks_per_sm={r: gc.xor_blocks_per_sm(r)
                             for r in (8, 32, 48, 64, 96, 128, 160)})
+    if "--ladder-ab" in sys.argv[1:]:
+        return ladder_ab(card)
     ops_s = peak_ops_s()
     timed = phase_kernels(card, ops_s)
     timed.update(phase_plane_kernels(card, ops_s))

@@ -260,8 +260,14 @@ class DisperseLayer(Layer):
                description="batches below this run on the CPU ladder "
                            "(the native codec); at or above it the "
                            "calibrated timing models pick the card or "
-                           "the CPU per flush; 0 pins every flush to "
-                           "the card"),
+                           "the CPU per flush, and the card takes them "
+                           "until calibration (after a quiet gap) has "
+                           "fitted the models; 0 pins every flush to "
+                           "the card.  The floor is the one rule before "
+                           "calibration and bounds a poor fit, which "
+                           "could send flushes of a few stripes over the "
+                           "link; the default lies below the break-even "
+                           "measured on an H100's host"),
         Option("eager-lock", "bool", default="on",
                description="hold the txn inodelk across consecutive fops "
                            "on one inode with a delayed combined post-op "

@@ -20,13 +20,12 @@ device-resident batches" — is a batching window:
   device at two sizes (fitting ``t = overhead + bytes/rate``) and the
   native codec on the same data; each flush at or above ``min_batch``
   then goes to whichever path predicts faster for its size, and flushes
-  below it to the CPU.  Until calibration completes, flushes run on the
-  CPU ladder.  Production flush timings keep updating the models (EMA),
-  so a drifting transfer latency re-routes automatically.  All three
-  queues route: encode, decode and parity delta.
+  below it to the CPU.  Until calibration completes, flushes at or above
+  ``min_batch`` take the device path.  All three queues route: encode,
+  decode and parity delta.
 
 This is the JAX package's ladder (glusterfs_tpu/ops/batch.py) without
-its mesh tier, with four deliberate differences:
+its mesh tier, with seven deliberate differences:
 
 (a) A calibration that fails raises.  The JAX package records
     ``"failed"`` and keeps every flush on the CPU for good, which hides
@@ -48,11 +47,34 @@ its mesh tier, with four deliberate differences:
 (d) Device timing ends at the host copy back: :meth:`Codec.encode`
     returns NumPy, so a device sample runs from the call until the
     result is on the host, copies included — the same clock in
-    calibration and in every observed flush.  Calibration also gives
+    calibration and in every counted flush.  Calibration also gives
     the native codec an untimed first call at each size, as it gives
     the device: unwarmed, the first native call measured 1.16 ms of
     overhead against 0.10 ms on a warm one (PERF.md), which put
-    the break-even at 0 bytes.
+    the break-even at 0 bytes.  And it keeps the fastest of
+    ``_CAL_REPS`` timed calls at each size, not one: a calibration
+    that starts at a quiet gap can still share the card with the
+    flushes that end it.
+(e) No models, no CPU: until calibration is done, a flush at or above
+    ``min_batch`` takes the device path.  The JAX package sends it to
+    the CPU ladder, and since calibration waits for a quiet gap of
+    ``_CAL_IDLE_S``, a volume under steady traffic (or a heal of a
+    large file, window after window) never reached the card at all.
+(f) Production flushes do not move the models.  The JAX package folds
+    each flush's time into its path's model (EMA).  On the H100's host,
+    device flushes timed under load (two flush workers on the codec's
+    one stream, a calibration beside them, the first flushes at a size
+    paying pinned allocations) dragged the device model below the
+    native codec's at every size, and a path the models reject gets no
+    more samples to recover: a heal ran 2040 of its 2050 flushes on the
+    native codec, and 64 MiB reads went there too (PERF.md).  The
+    models are the calibration's; each flush only adds to its route's
+    counts in ``dump_stats()["routed"]``.
+(g) A background calibration that a flush ran beside is dropped and
+    tried again at the next quiet gap.  On the H100's host, one timed
+    beside a heal's windows put the break-even at 1.13 MB (quiet ones:
+    0.33-0.80 MB) and sent the heal's 1 MiB windows to the native
+    codec.  :meth:`ensure_calibrated` keeps its result regardless.
 
 Correctness leans on fragment-stream concatenation: fragment ``f`` of
 ``concat(stripes_a, stripes_b)`` is ``concat(frag_f(a), frag_f(b))`` —
@@ -76,17 +98,29 @@ _DEVICE_BACKENDS = ("cuda", "cuda-mma", "torch", "torch-mma")
 # t(n) = overhead + n / rate.  The large point also warms the kernels.
 _CAL_SMALL = 64
 _CAL_LARGE = 2048
+# timed calls per calibration point; the fastest counts, so a call that
+# shared the card or the host with production flushes does not
+_CAL_REPS = 3
 
-_EMA = 0.3  # weight of a new production sample in the online models
+
+def _fastest(fn, data: np.ndarray) -> float:
+    """Host-clock seconds of the fastest of ``_CAL_REPS`` calls of
+    ``fn(data)``, after one untimed call."""
+    fn(data)
+    best = float("inf")
+    for _ in range(_CAL_REPS):
+        t0 = time.perf_counter()
+        fn(data)
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 class _PathModel:
-    """Online ``t(bytes) = overhead + bytes / rate`` timing model."""
+    """Calibrated ``t(bytes) = overhead + bytes / rate`` timing model."""
 
     def __init__(self) -> None:
         self.overhead = 0.0
         self.rate = 0.0  # bytes/s; 0 -> uncalibrated
-        self.samples = 0
 
     @property
     def ready(self) -> bool:
@@ -97,20 +131,6 @@ class _PathModel:
         slope = max((t2 - t1) / max(n2 - n1, 1), 1e-15)
         self.rate = 1.0 / slope
         self.overhead = max(t1 - n1 * slope, 0.0)
-        self.samples = 2
-
-    def observe(self, nbytes: int, secs: float) -> None:
-        """EMA update from a production flush (overhead held, rate tracked)."""
-        if not self.ready:
-            return
-        span = secs - self.overhead
-        if span <= 0:
-            # faster than the modeled overhead: overhead was overestimated
-            self.overhead = (1 - _EMA) * self.overhead + _EMA * secs * 0.5
-            span = max(secs - self.overhead, 1e-9)
-        implied = nbytes / span
-        self.rate = (1 - _EMA) * self.rate + _EMA * implied
-        self.samples += 1
 
     def predict(self, nbytes: int) -> float:
         if not self.ready:
@@ -127,12 +147,20 @@ class BatchingCodec(Codec):
     Stats: ``launches`` counts device-path launches (one per flush routed
     there, sync calls included), ``cpu_launches`` flushes routed to the
     CPU ladder, ``batched_fops`` total fops served, ``max_batch`` the
-    largest coalesced batch in fops.
+    largest coalesced batch in fops, ``routed`` the flushes, bytes and
+    host-clock seconds of the finished async flushes per route.
 
     ``min_batch`` is a hard floor below which flushes never go to the
     device; ``min_batch=0`` disables routing (every flush takes the
-    device path).  Between the floor and the measured break-even, the
-    calibrated models decide per flush.
+    device path).  At or above the floor, the calibrated models decide
+    per flush, and the device path takes the flush while there are no
+    models yet.  The floor is not the break-even: it is the one rule
+    that holds before calibration, and it bounds a poor fit (a cold
+    first native call read as overhead put the break-even at 0 bytes,
+    PERF.md), which would otherwise send flushes of a few stripes over
+    the link.  The default, 256 KiB, lies below every break-even that a
+    warm calibration measured on the H100's host, so it moves no flush
+    that such a fit would send to the device.
     """
 
     def __init__(self, k: int, r: int, backend: str = "auto", *,
@@ -162,6 +190,9 @@ class BatchingCodec(Codec):
         self._cpu = None if self.backend in _DEVICE_BACKENDS else self
         self.launches = 0
         self.cpu_launches = 0
+        # per route: [flushes, bytes, host-clock seconds] of finished
+        # async flushes
+        self.routed = {"device": [0, 0, 0.0], "cpu": [0, 0, 0.0]}
         self.batched_fops = 0
         self.max_batch = 0
         # two workers: batch N's device round trip overlaps batch N+1's
@@ -174,6 +205,9 @@ class BatchingCodec(Codec):
         self._nat = _PathModel()
         self._cal_state = "idle"  # idle -> running -> done/failed
         self._cal_error: BaseException | None = None
+        # set by ensure_calibrated(): keep the result even if flushes ran
+        # beside it
+        self._cal_forced = False
         # calibration is DEFERRED to an idle gap: the first device
         # encode pays the kernels' build and the allocator's growth —
         # run that while production flushes are arriving and every
@@ -223,11 +257,15 @@ class BatchingCodec(Codec):
         """Time device + native at two sizes; fit both models.
 
         Runs in the pool.  Each size gets a warmup device launch (pays
-        the kernels' build and the allocator's growth) and a timed one,
-        then a warmup and a timed native encode of the same data.  An
-        exception is kept, and raised by ensure_calibrated() and routed
-        flushes.
+        the kernels' build and the allocator's growth) and the fastest
+        of ``_CAL_REPS`` timed ones, then the same for native encodes of
+        the same data.  An exception is kept, and raised by
+        ensure_calibrated() and routed flushes.  A background
+        calibration that a flush ran beside is dropped (back to "idle",
+        tried again at the next quiet gap): it timed a busy card and
+        host, not the paths.
         """
+        seen = self.batched_fops
         try:
             small = self._small()
             pts_dev, pts_nat = [], []
@@ -235,15 +273,12 @@ class BatchingCodec(Codec):
                 data = np.frombuffer(
                     np.random.default_rng(stripes).bytes(
                         stripes * self.stripe_size), dtype=np.uint8)
-                super().encode(data)  # warmup
-                t0 = time.perf_counter()
-                super().encode(data)
-                pts_dev.append((data.size, time.perf_counter() - t0))
-                small.encode(data)  # warmup
-                t0 = time.perf_counter()
-                small.encode(data)
-                pts_nat.append((data.size, time.perf_counter() - t0))
+                pts_dev.append((data.size, _fastest(super().encode, data)))
+                pts_nat.append((data.size, _fastest(small.encode, data)))
             with self._lock:
+                if self.batched_fops != seen and not self._cal_forced:
+                    self._cal_state = "idle"
+                    return
                 self._dev.fit_two_points(*pts_dev[0], *pts_dev[1])
                 self._nat.fit_two_points(*pts_nat[0], *pts_nat[1])
                 self._cal_state = "done"
@@ -297,13 +332,16 @@ class BatchingCodec(Codec):
         calibration's error, or the native codec's build error.
 
         Benches call this so routing decisions in the measured window are
-        model-driven rather than 'calibrating -> CPU'.  Daemons never wait.
+        model-driven rather than 'no models -> device'.  Daemons never
+        wait.
         """
         if self._cpu is self:
             return False
         self._small()
-        self._maybe_start_calibration()
+        with self._lock:
+            self._cal_forced = True
         while True:
+            self._maybe_start_calibration()  # no-op unless "idle"
             with self._lock:
                 st = self._cal_state
             if st == "done":
@@ -332,7 +370,7 @@ class BatchingCodec(Codec):
         if st == "failed":
             raise self._calibration_failed()
         self._maybe_schedule_calibration()
-        return small, "cpu"
+        return self, "device"  # no models yet: the device is the default
 
     def break_even_bytes(self) -> int | None:
         """Bytes past which the device model predicts a win (None if flat)."""
@@ -348,8 +386,13 @@ class BatchingCodec(Codec):
                               / inv))
 
     def _observe(self, device: bool, nbytes: int, secs: float) -> None:
+        """Count a finished flush on its route (the models stay the
+        calibration's: difference (f))."""
         with self._lock:
-            (self._dev if device else self._nat).observe(nbytes, secs)
+            row = self.routed["device" if device else "cpu"]
+            row[0] += 1
+            row[1] += nbytes
+            row[2] += secs
 
     # -- flushing ------------------------------------------------------------
 
@@ -434,18 +477,14 @@ class BatchingCodec(Codec):
                      total: int, op: str) -> None:
         """Executes in the pool: concatenate stripe-major payloads, one
         launch (encode or parity delta), split the fragment columns back
-        per fop, resolve.  Encodes feed the timing models; parity-only
-        deltas would skew them low and are not observed."""
+        per fop, resolve."""
         try:
             t0 = time.perf_counter()
             cat = batch[0][0] if len(batch) == 1 else \
                 np.concatenate([d for d, _ in batch])
-            if op == "encode":
-                frags = codec.encode(cat)
-                self._observe(kind == "device", total,
-                              time.perf_counter() - t0)
-            else:
-                frags = codec.encode_delta(cat)
+            frags = codec.encode(cat) if op == "encode" else \
+                codec.encode_delta(cat)
+            self._observe(kind == "device", total, time.perf_counter() - t0)
             results, off = [], 0
             for d, _ in batch:
                 flen = d.size // self.k
@@ -559,10 +598,11 @@ class BatchingCodec(Codec):
         with self._lock:
             launches = self.launches
             dev, nat = (
-                {"overhead_s": m.overhead, "rate_MiB_s": m.rate / 2**20,
-                 "samples": m.samples} if m.ready else None
-                for m in (self._dev, self._nat))
+                {"overhead_s": m.overhead, "rate_MiB_s": m.rate / 2**20}
+                if m.ready else None for m in (self._dev, self._nat))
             cal = self._cal_state
+            routed = {route: {"flushes": n, "bytes": b, "secs": t}
+                      for route, (n, b, t) in self.routed.items()}
         return {
             "backend": self.backend,
             "device": str(self.device) if self.device is not None else "host",
@@ -576,4 +616,5 @@ class BatchingCodec(Codec):
             "device_model": dev,
             "native_model": nat,
             "break_even_bytes": self.break_even_bytes(),
+            "routed": routed,
         }

@@ -9,6 +9,7 @@ not build raises (never ``ref``), and the EC layer's
 package's ``ref`` codec.  Tolerance: exact byte equality."""
 
 import asyncio
+import contextlib
 import sys
 import threading
 import time
@@ -187,8 +188,8 @@ def test_measured_break_even_routing():
     ladder; a near-zero-overhead device model routes them to the device."""
     codec = _codec(window=0.001, min_batch=1)
     # hand-calibrate: device = 1 s overhead + fast rate; native = fast
-    codec._dev.overhead, codec._dev.rate, codec._dev.samples = 1.0, 1e12, 2
-    codec._nat.overhead, codec._nat.rate, codec._nat.samples = 0.0, 1e9, 2
+    codec._dev.overhead, codec._dev.rate = 1.0, 1e12
+    codec._nat.overhead, codec._nat.rate = 0.0, 1e9
     codec._cal_state = "done"
 
     async def one(d):
@@ -222,8 +223,8 @@ def test_ensure_calibrated_measures_both_paths():
     stats = codec.dump_stats()
     assert stats["calibration"] == "done"
     assert stats["device_model"]["rate_MiB_s"] > 0
-    assert stats["device_model"]["samples"] == 2
     assert stats["native_model"]["rate_MiB_s"] > 0
+    assert all(r["flushes"] == 0 for r in stats["routed"].values())
     assert stats["min_batch_bytes"] == 256 * 1024
     assert set(stats) >= {"launches", "cpu_launches", "break_even_bytes"}
     assert codec.launches == 0, "calibration is not a served launch"
@@ -232,22 +233,95 @@ def test_ensure_calibrated_measures_both_paths():
 
 def test_routed_flushes_follow_and_update_the_models():
     """After calibration, a flush at or above min_batch goes where the
-    models say (device or CPU), its bytes are right, and its timing
-    updates that path's model."""
+    models say (device or CPU), its bytes are right, and its timing is
+    counted on its route; the models stay the calibration's (a slow
+    flush must not exile a path that then gets no samples)."""
     codec = _codec(window=0.001, min_batch=STRIPE)
 
     async def run():
         await codec.ensure_calibrated()
+        models = [(m.overhead, m.rate) for m in (codec._dev, codec._nat)]
         d = _rand(64 * STRIPE, 8)
         frags = await codec.encode_async(d)
         out = await codec.decode_async(frags[[1, 2, 4, 5]], (1, 2, 4, 5))
-        return d, frags, out
+        return d, frags, out, models
 
-    d, frags, out = asyncio.run(run())
+    d, frags, out, models = asyncio.run(run())
     assert np.array_equal(frags, REF.encode(d)) and np.array_equal(out, d)
     assert codec.launches + codec.cpu_launches == 2
-    samples = codec._dev.samples + codec._nat.samples
-    assert samples == 4 + 2, "each routed flush is one more sample"
+    routed = codec.dump_stats()["routed"]
+    assert routed["device"]["flushes"] == codec.launches
+    assert routed["cpu"]["flushes"] == codec.cpu_launches
+    assert sum(r["bytes"] for r in routed.values()) == 2 * d.size
+    assert all(r["secs"] > 0 for r in routed.values() if r["flushes"])
+    assert [(m.overhead, m.rate) for m in (codec._dev, codec._nat)] == models
+    codec.close()
+
+
+def test_slow_device_flushes_do_not_exile_the_device():
+    """Flushes that take long on the device (a loaded host, a first
+    pinned allocation) leave the calibrated models as they are: the next
+    flush that the models give the device still goes there.  Folding
+    each flush's time into the device model moved it under the CPU
+    ladder's within these eight flushes, and a path the models reject
+    gets no sample to recover with."""
+    codec = _SlowDeviceCodec(K, R, "torch", device="cpu", window=0.001,
+                             min_batch=STRIPE)
+    codec.DELAY = 0.01
+    codec._dev.overhead, codec._dev.rate = 0.0, 1e10
+    codec._nat.overhead, codec._nat.rate = 0.0, 1e9
+    codec._cal_state = "done"
+    d = _rand(8 * STRIPE, 13)
+
+    async def run():
+        return [await codec.encode_async(d) for _ in range(9)]
+
+    outs = asyncio.run(run())
+    assert all(np.array_equal(o, REF.encode(d)) for o in outs)
+    assert codec.launches == 9 and codec.cpu_launches == 0
+    assert codec.dump_stats()["routed"]["device"]["flushes"] == 9
+    codec.close()
+
+
+class _BusyDeviceCodec(BatchingCodec):
+    """Every device call takes a little wall time, so a flush can land
+    while a calibration runs."""
+
+    @contextlib.contextmanager
+    def _placed(self):
+        time.sleep(0.02)
+        yield
+
+
+def test_a_flush_beside_calibration_drops_it():
+    """A background calibration that a flush ran beside timed a busy
+    card: it is dropped (no models, state back to "idle", the device
+    path meanwhile) and tried again at the next quiet gap.
+    ensure_calibrated() keeps its result."""
+    codec = _BusyDeviceCodec(K, R, "torch", device="cpu", window=0.001,
+                             min_batch=STRIPE)
+    codec._CAL_IDLE_S = 3600  # no background retry inside the test
+    d = _rand(4 * STRIPE, 14)
+
+    async def run():
+        codec._maybe_start_calibration()
+        out = await codec.encode_async(d)  # lands while it runs
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            with codec._lock:
+                if codec._cal_state != "running":
+                    break
+            await asyncio.sleep(0.01)
+        dropped = codec.dump_stats()
+        forced = await codec.ensure_calibrated()
+        return out, dropped, forced
+
+    out, dropped, forced = asyncio.run(run())
+    assert np.array_equal(out, REF.encode(d))
+    assert dropped["calibration"] == "idle"
+    assert dropped["device_model"] is None and dropped["native_model"] is None
+    assert codec.launches == 1 and codec.cpu_launches == 0
+    assert forced is True and codec.dump_stats()["calibration"] == "done"
     codec.close()
 
 
@@ -387,14 +461,16 @@ def test_calibration_schedule_check_is_locked():
 
 
 def test_calibration_starts_after_an_idle_gap():
-    """A routed flush before calibration runs on the CPU and schedules a
-    calibration, which starts once flushes have been quiet _CAL_IDLE_S."""
+    """A routed flush before calibration takes the device path and
+    schedules a calibration, which starts once flushes have been quiet
+    _CAL_IDLE_S."""
     codec = _codec(window=0.001, min_batch=STRIPE)
 
     async def run():
         d = _rand(4 * STRIPE, 11)
         out = await codec.encode_async(d)
-        assert codec.cpu_launches == 1 and codec._cal_timer is not None
+        assert codec.launches == 1 and codec.cpu_launches == 0
+        assert codec._cal_timer is not None
         deadline = time.monotonic() + 120  # the CPU plain encodes
         while time.monotonic() < deadline:
             with codec._lock:
@@ -406,6 +482,36 @@ def test_calibration_starts_after_an_idle_gap():
     d, out = asyncio.run(run())
     assert np.array_equal(out, REF.encode(d))
     assert codec.dump_stats()["calibration"] == "done"
+    codec.close()
+
+
+@pytest.mark.parametrize("systematic", [False, True])
+def test_uncalibrated_flushes_take_the_device_path(systematic):
+    """With no models yet (no quiet gap has come), encode, decode and
+    (systematic) delta flushes at or above min_batch take the device
+    path, never the CPU ladder; one below it takes the native codec."""
+    codec = _codec(window=0.001, min_batch=2 * STRIPE, systematic=systematic)
+    codec._CAL_IDLE_S = 3600  # steady traffic: calibration never starts
+    ref = REF_SYS if systematic else REF
+    d = _rand(3 * STRIPE, 12)
+    rows = (1, 2, 4, 5)
+
+    async def run():
+        frags = await codec.encode_async(d)
+        out = await codec.decode_async(frags[list(rows)], rows)
+        delta = await codec.encode_delta_async(d) if systematic else None
+        on_device = codec.launches
+        small = await codec.encode_async(d[:STRIPE])
+        return frags, out, delta, on_device, small
+
+    frags, out, delta, on_device, small = asyncio.run(run())
+    assert np.array_equal(frags, ref.encode(d)) and np.array_equal(out, d)
+    if systematic:
+        assert np.array_equal(delta, ref.encode_delta(d))
+    assert np.array_equal(small, ref.encode(d[:STRIPE]))
+    assert on_device == (3 if systematic else 2)
+    assert codec.launches == on_device and codec.cpu_launches == 1
+    assert codec.dump_stats()["calibration"] == "idle"
     codec.close()
 
 
@@ -465,3 +571,35 @@ def test_ec_volume_min_batch_option_routes_and_reconfigures(tmp_path):
     assert routed[0] == 0 and routed[1] >= 1
     assert pinned[0] >= 1 and pinned[1] == 0
     assert got == [data, data]
+
+
+def test_ec_volume_default_options_take_the_card_path(tmp_path):
+    """At the volume's default options, with no calibration run, a write
+    and a read whose flushes reach the floor take the device path (the
+    kernels' plain versions here); a small write takes the native
+    codec; every byte round-trips."""
+    big = bytes(_rand(512 << 10, 51))
+    small = bytes(_rand(3 * STRIPE + 5, 52))
+
+    async def run():
+        c = Client(Graph.construct(_volume(tmp_path)))
+        await c.mount()
+        ec = c.graph.top
+        ec.codec._CAL_IDLE_S = 3600  # steady traffic: no quiet gap
+        await c.write_file("/big", big)
+        written = (ec.codec.launches, ec.codec.cpu_launches)
+        got_big = await c.read_file("/big")
+        read = (ec.codec.launches, ec.codec.cpu_launches)
+        await c.write_file("/small", small)
+        got_small = await c.read_file("/small")
+        stats = ec.codec.dump_stats()
+        await c.unmount()
+        return written, read, stats, got_big, got_small
+
+    written, read, stats, got_big, got_small = asyncio.run(run())
+    assert stats["min_batch_bytes"] == 256 * 1024
+    assert stats["calibration"] == "idle"
+    assert written[0] >= 1 and written[1] == 0
+    assert read[0] > written[0] and read[1] == 0
+    assert stats["cpu_launches"] >= 1
+    assert got_big == big and got_small == small

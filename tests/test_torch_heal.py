@@ -214,6 +214,58 @@ def test_heal_matches_jax_heal(tmp_path, k, r, systematic, wiped, down,
     assert sum(gf256_cuda.LAUNCHES.values()) == 0  # the CPU ran it all
 
 
+def test_default_options_heal_matches_jax_heal(tmp_path):
+    """At the volume's default ``stripe-cache-min-batch`` (256KB) and
+    heal window (1 MiB), with no calibration forced, a heal's flushes at
+    or above the floor take the kernels' path (their plain versions
+    here) and those below it the native codec; the healed bricks equal
+    the JAX package's heal of the same bricks and the bricks before the
+    wipe."""
+    k, r, wiped = 4, 2, (0, 3)
+    n = k + r
+    # /a heals in a 1 MiB and a 512 KiB window, /b in one past the floor,
+    # /c in one below it
+    files = {"/a": _rand(3 << 19, seed=31), "/b": _rand(300 << 10, seed=32),
+             "/c": _rand(40 << 10, seed=33)}
+    paths = list(files)
+    popts = {"cpu-extensions": "torch", "systematic": "off"}
+    jopts = {"cpu-extensions": "ref", "systematic": "off"}
+    orig, pdir, jdir = tmp_path / "orig", tmp_path / "port", tmp_path / "jax"
+
+    async def run():
+        c, _ = await _mount(PORT, orig, n, r, popts)
+        try:
+            await asyncio.gather(*(c.write_file(p, d)
+                                   for p, d in files.items()))
+        finally:
+            await c.unmount()
+        before = await _state(PORT, orig, n, r, popts, paths)
+        _copy(orig, pdir, n)
+        _copy(orig, jdir, n)
+        c, ec = await _mount(PORT, pdir, n, r, popts)
+        try:
+            for i in wiped:
+                _wipe(pdir, ec.children[i], i)
+            for p in paths:
+                res = await ec.heal_file(p)
+                assert sorted(res["healed"]) == sorted(wiped), (p, res)
+            stats = ec.codec.dump_stats()
+        finally:
+            await c.unmount()
+        jax_after = await _heal(JAX, jdir, n, r, jopts, wiped, paths)
+        return (before, stats, jax_after,
+                await _state(PORT, pdir, n, r, popts, paths),
+                await _state(JAX, jdir, n, r, jopts, paths))
+
+    before, stats, jax_after, healed_port, healed_jax = asyncio.run(run())
+    assert stats["min_batch_bytes"] == 256 * 1024
+    assert stats["launches"] >= 1, f"no heal flush took the card: {stats}"
+    assert stats["cpu_launches"] >= 1, stats
+    assert all(bad == [] for bad in jax_after.values()), jax_after
+    assert healed_port == healed_jax
+    assert healed_port == before
+
+
 @pytest.mark.parametrize("systematic", ["off", "on"])
 def test_stale_brick_heal_matches_jax(tmp_path, systematic):
     """tests/test_systematic.py's case: a brick down during an
