@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py            # the whole run (one card)
     python3 chip_smoke.py --profile  # the whole run, the served phases
-                                     # under torch.profiler (device share)
+                                     # under torch.profiler (device share),
+                                     # served-4+2 and served-4+2-wire also
+                                     # under cProfile (top 25 functions)
     python3 chip_smoke.py --ladder-ab  # only served-4+2 and
                                      # served-4+2-ladder, in the order
                                      # pinned, ladder, ladder, pinned
@@ -69,13 +71,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    AVX2 codec), each window's flushes by size and route;
 11. ``native-vs-card``: ``Codec(4, 2, "native")`` against
    ``Codec(4, 2, "cuda")`` on 4+2 encode and decode of 1 MiB and 64 MiB
-   (host clock, copies included), beside the host's CPU model.
+   (host clock, copies included), beside the host's CPU model;
+12. ``served-4+2-wire``: a plain and a systematic 4+2 volume whose six
+   bricks are the port's brick daemons (``python -m
+   glusterfs_tpu_torch.daemon``, the default brick stack, one process
+   each, no card), the client over ``protocol/client`` with
+   ``served-4+2``'s options: the same writes (and the systematic
+   overwrite, ``xorv`` over the wire), read back; the down bricks'
+   fragments spoiled, the volume remounted and two daemons SIGKILLed
+   (bricks 0 and 3, then 1 and 5), their disconnect awaited as
+   CHILD_DOWN, everything read again.  Each window's rates, launches,
+   flushes, RPC round trips and shm lane bytes are reported, whether each
+   connection armed the shm lane, and how long each unmount took.
 
-Phases 5-8 pin ``stripe-cache-min-batch 0`` (every flush on the card);
+Phases 5-8 and 12 pin ``stripe-cache-min-batch 0`` (every flush on the
+card);
 the heal and ladder phases keep the volume's default.  Every served
 phase reports its windows' flushes: count, bytes and seconds per route,
 and the flush sizes.  The launch counters are set to 0 just before
-each path (phases 4-10) and read just after it (the ladder phase takes
+each path (phases 4-10 and 12) and read just after it (the ladder phase takes
 its calibration's launches back out); a kernel of the path that was
 never launched fails the run.  The line before the last is the
 ``kernels`` summary, then the card's name and power limit, and the last
@@ -92,6 +106,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -737,6 +752,20 @@ async def _write_files(c, g) -> tuple[dict, float]:
     return files, write
 
 
+async def _overwrite(c, g, files: dict, ec) -> None:
+    """An unaligned overwrite inside a healthy file of a systematic
+    volume: it must take the parity delta."""
+    patch = _payload(g, 3001)
+    f = await c.open("/f5")
+    await f.write(patch, 777)
+    await f.close()
+    b = bytearray(files["/f5"])
+    b[777:777 + len(patch)] = patch
+    files["/f5"] = bytes(b)
+    if ec.write_path["delta"] < 1:
+        raise AssertionError(f"no parity-delta write: {ec.write_path}")
+
+
 async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
                  groups: int = 1, n: int = 6, r: int = 2,
                  calibrate: bool = False) -> dict:
@@ -757,17 +786,7 @@ async def _serve(base: Path, g, options: dict, down: tuple[int, ...],
         at_start = dict(gc.LAUNCHES)
         files, write = await _write_files(c, g)
         if options.get("systematic") == "on":
-            # unaligned overwrite inside a healthy file: the parity delta
-            patch = _payload(g, 3001)
-            f = await c.open("/f5")
-            await f.write(patch, 777)
-            await f.close()
-            b = bytearray(files["/f5"])
-            b[777:777 + len(patch)] = patch
-            files["/f5"] = bytes(b)
-            if ecs[0].write_path["delta"] < 1:
-                raise AssertionError(f"no parity-delta write: "
-                                     f"{ecs[0].write_path}")
+            await _overwrite(c, g, files, ecs[0])
         on_write = _since(at_start)
         written = len(log)
         at_read = dict(gc.LAUNCHES)
@@ -1007,6 +1026,202 @@ async def served_ladder(base: Path, g) -> dict:
     return res
 
 
+class _BrickDaemons:
+    """The port's brick daemons, ``python -m glusterfs_tpu_torch.daemon``
+    with the default brick stack, one process each with no card
+    (``CUDA_VISIBLE_DEVICES=""``), as tests/harness.py starts the JAX
+    package's.  Reaped by recorded PID, never by a name pattern."""
+
+    def __init__(self, base: Path, n: int):
+        from glusterfs_tpu_torch.utils.volspec import brick_volfile
+
+        self.base, self.n = base, n
+        self.procs: list[subprocess.Popen] = []
+        self.ports: list[int] = []
+        for i in range(n):
+            (base / f"brick{i}.vol").write_text(
+                brick_volfile(f"v-brick-{i}", base / f"brick{i}"))
+
+    def start(self, timeout: float = 120.0) -> list[int]:
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=str(ROOT))
+        for i in range(self.n):
+            (self.base / f"brick{i}.port").unlink(missing_ok=True)
+            with open(self.base / f"brick{i}.log", "wb") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "glusterfs_tpu_torch.daemon",
+                     "--volfile", str(self.base / f"brick{i}.vol"),
+                     "--listen", "0",
+                     "--portfile", str(self.base / f"brick{i}.port")],
+                    cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                    stderr=log))
+        deadline = time.monotonic() + timeout
+        for i, proc in enumerate(self.procs):
+            portfile = self.base / f"brick{i}.port"
+            while not portfile.exists():
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"brick daemon {i} did not start: " +
+                        (self.base / f"brick{i}.log").read_text()[-2000:])
+                time.sleep(0.02)
+            self.ports.append(int(portfile.read_text()))
+        return self.ports
+
+    def kill(self, i: int) -> None:
+        os.kill(self.procs[i].pid, signal.SIGKILL)
+        self.procs[i].wait()
+
+    def stop(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in self.procs:
+            try:
+                proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+async def _mount_wire(ports: list[int], options: dict):
+    """Mount a 4+2 client over served bricks, as ``_mount`` does over
+    local ones, and wait for every brick's handshake."""
+    from glusterfs_tpu_torch.api.glfs import Client, wait_connected
+    from glusterfs_tpu_torch.core.graph import Graph
+    from glusterfs_tpu_torch.utils.volspec import client_volfile
+
+    c = Client(Graph.construct(client_volfile("v", ports, 2, {
+        "cpu-extensions": "auto", "stripe-cache": "on",
+        "stripe-cache-window": 2000, "stripe-cache-min-batch": 0,
+        **options})))
+    await c.mount()
+    if not await wait_connected(c.graph, timeout=60):
+        raise AssertionError("a brick daemon did not answer the handshake")
+    return c, c.graph.top
+
+
+def _wire_counters(ec) -> dict:
+    """The client's RPC round trips, wire bytes and shm lane bytes."""
+    from glusterfs_tpu_torch.rpc import shm
+
+    return {"rpc_roundtrips": sum(ch.rpc_roundtrips for ch in ec.children),
+            "bytes_tx": sum(ch.bytes_tx for ch in ec.children),
+            "bytes_rx": sum(ch.bytes_rx for ch in ec.children),
+            "shm_tx_bytes": shm.shm_stats["tx_bytes"],
+            "shm_rx_bytes": shm.shm_stats["rx_bytes"],
+            "shm_fallbacks": sum(shm.fallback_stats.values())}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+async def _serve_wire(base: Path, g, systematic: str,
+                      down: tuple[int, int]) -> dict:
+    """The served traffic on a 4+2 volume whose six bricks are daemon
+    processes: write, read back; spoil the ``down`` bricks' fragments,
+    remount, SIGKILL those two daemons, wait until the EC layer has
+    seen each as CHILD_DOWN (the transport's EOF, not a timer), read
+    everything again.  Reports each window's rates, launches, flushes,
+    RPC round trips and shm lane bytes."""
+    from glusterfs_tpu_torch.rpc import shm
+
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    bricks = _BrickDaemons(base, 6)
+    fallbacks0 = dict(shm.fallback_stats)
+    try:
+        ports = bricks.start()
+        options = {"systematic": systematic}
+        c, ec = await _mount_wire(ports, options)
+        try:
+            shm_armed = [ch._peer_shm for ch in ec.children]
+            log = _flush_log([ec])
+            at_start, wire0 = dict(gc.LAUNCHES), _wire_counters(ec)
+            files, write = await _write_files(c, g)
+            if systematic == "on":
+                await _overwrite(c, g, files, ec)
+            on_write = _since(at_start)
+            wire_write = _delta(_wire_counters(ec), wire0)
+            written = len(log)
+            at_read, wire0 = dict(gc.LAUNCHES), _wire_counters(ec)
+            healthy = await _read_all(c, files)
+            on_read = _since(at_read)
+            wire_read = _delta(_wire_counters(ec), wire0)
+            flushes = {"write": _flush_split(log[:written]),
+                       "healthy_read": _flush_split(log[written:])}
+            stats = ec.codec.dump_stats()
+            write_path = dict(ec.write_path)
+        finally:
+            t0 = time.perf_counter()
+            await c.unmount()
+            unmount_s = [time.perf_counter() - t0]
+        _spoil(base, down)
+        c, ec = await _mount_wire(ports, options)
+        try:
+            for i in down:
+                bricks.kill(i)
+            deadline = time.monotonic() + 30
+            while any(ec.up[i] for i in down):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"killed bricks still up: {ec.up}")
+                await asyncio.sleep(0.01)
+            log = _flush_log([ec])
+            at_degraded, wire0 = dict(gc.LAUNCHES), _wire_counters(ec)
+            degraded = await _read_all(c, files)
+            on_degraded = _since(at_degraded)
+            wire_degraded = _delta(_wire_counters(ec), wire0)
+            flushes["degraded_read"] = _flush_split(log)
+            dstats = ec.codec.dump_stats()
+        finally:
+            t0 = time.perf_counter()
+            await c.unmount()
+            unmount_s.append(time.perf_counter() - t0)
+    finally:
+        bricks.stop()
+    if not (stats["launches"] > 0 and stats["max_batch"] > 1) or \
+            stats["cpu_launches"] or stats["backend"] != "cuda":
+        raise AssertionError(f"codec did not batch on the card: {stats}")
+    return {"systematic": systematic, "bricks_killed": list(down),
+            "brick_pids": [p.pid for p in bricks.procs],
+            "write_mib_s": write, "healthy_read_mib_s": healthy,
+            "degraded_read_mib_s": degraded, "shm_armed": shm_armed,
+            "shm_fallbacks": {k: v - fallbacks0.get(k, 0)
+                              for k, v in shm.fallback_stats.items()},
+            "wire_write": wire_write, "wire_healthy_read": wire_read,
+            "wire_degraded_read": wire_degraded, "write_path": write_path,
+            "codec": stats, "degraded_codec": dstats,
+            "launches_write": on_write, "launches_healthy_read": on_read,
+            "launches_degraded_read": on_degraded, "flushes": flushes,
+            "unmount_s": unmount_s}
+
+
+async def served_wire(base: Path, g) -> dict:
+    """``served-4+2-wire``: the served traffic on a plain and a
+    systematic 4+2 volume whose bricks are the port's daemons over TCP
+    (``BASELINE.json`` configs 1 and 3, not cut), two daemons SIGKILLed
+    per volume: bricks 0 and 3 of the plain one (fused encode, decode),
+    1 and 5 of the systematic one (fused parity, also through the
+    ``xorv`` overwrite, and reconstruct)."""
+    plain = await _serve_wire(base / "plain", g, "off", (0, 3))
+    shutil.rmtree(base / "plain", ignore_errors=True)
+    syst = await _serve_wire(base / "systematic", g, "on", (1, 5))
+    for vol, checks in (
+            (plain, (("fused_encode", "launches_write"),
+                     ("fused_decode", "launches_healthy_read"),
+                     ("fused_decode", "launches_degraded_read"))),
+            (syst, (("fused_parity", "launches_write"),
+                    ("fused_reconstruct", "launches_degraded_read")))):
+        for name, window in checks:
+            if vol[window][name] < 1:
+                raise AssertionError(
+                    f"{name} not launched over the wire on {window} "
+                    f"(systematic {vol['systematic']}): {vol[window]}")
+    if syst["write_path"]["delta"] < 1:
+        raise AssertionError(f"no xorv over the wire: {syst['write_path']}")
+    return {"config": "4+2", "plain": plain, "systematic_vol": syst}
+
+
 def _host_cpu() -> dict:
     """The first processor's identity in /proc/cpuinfo (where a kernel
     leaves the model name out, vendor, family and model stand in),
@@ -1083,10 +1298,45 @@ def _device_share(prof, wall_s: float) -> dict:
             "idle_share": 1 - busy / 1e3 / wall_s if busy else None}
 
 
+def _cprofile_top(prof, n: int = 25) -> dict:
+    """The ``n`` functions with the most cumulative time, and the ``n``
+    with the most time of their own, in a cProfile of the client process
+    (from Python 3.12 it also sees the threads the profiled one starts:
+    the batchers' flush pools, the event pool, the default executor, so
+    cumulative times of different threads overlap)."""
+    import pstats
+
+    st = pstats.Stats(prof)
+    out = {}
+    for key, order in (("by_cumulative", "cumulative"),
+                       ("by_self", "tottime")):
+        rows = []
+        for func in st.sort_stats(order).fcn_list[:n]:
+            _, nc, tt, ct, _ = st.stats[func]
+            path, line, fn = func
+            if path.startswith(str(ROOT)):
+                path = os.path.relpath(path, ROOT)
+            rows.append({"function": f"{path}:{line}({fn})", "ncalls": nc,
+                         "tottime_s": tt, "cumtime_s": ct})
+        out[key] = rows
+    return out
+
+
 def served(name: str, coro_fn, base: Path, g, card: str,
-           profile: bool = False) -> dict:
+           profile: bool = False, cprofile: bool = False) -> dict:
     """Drive one served path with the launch counters zeroed just before
-    and read just after (under the profiler with ``profile``)."""
+    and read just after (under the profiler with ``profile``; with
+    ``cprofile`` also under cProfile, whose top 25 functions by
+    cumulative and by own time are printed on a line of their own)."""
+    import cProfile
+
+    py_prof = cProfile.Profile() if cprofile else None
+
+    def drive():
+        if py_prof is None:
+            return asyncio.run(coro_fn(base, g))
+        return py_prof.runcall(asyncio.run, coro_fn(base, g))
+
     gc.reset_launches()
     t0 = time.perf_counter()
     if profile:
@@ -1094,15 +1344,17 @@ def served(name: str, coro_fn, base: Path, g, card: str,
         from torch.profiler import profile as torch_profile
 
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-            res = asyncio.run(coro_fn(base, g))
+            res = drive()
             torch.cuda.synchronize()
         res["profile"] = _device_share(prof, time.perf_counter() - t0)
     else:
-        res = asyncio.run(coro_fn(base, g))
+        res = drive()
         torch.cuda.synchronize()
     launches = dict(gc.LAUNCHES)
     emit(name, ok=True, launches=launches, card=card,
          wall_s=time.perf_counter() - t0, **res)
+    if py_prof is not None:
+        emit("cprofile", of=name, **_cprofile_top(py_prof))
     return launches, res
 
 
@@ -1161,7 +1413,7 @@ def main() -> int:
     base = ROOT / "_smoke_bricks"
     try:
         plain, _ = served("served-4+2", served_plain, base / "plain", g,
-                          card, profile)
+                          card, profile, cprofile=profile)
         syst, _ = served("served-4+2-systematic", served_systematic,
                          base / "systematic", g, card, profile)
         mma, _ = served("served-2x(4+2)-mma", served_dist_mma, base / "dist",
@@ -1174,6 +1426,9 @@ def main() -> int:
         shutil.rmtree(base, ignore_errors=True)
         ladder, _ = served("served-4+2-ladder", served_ladder,
                            base / "ladder", g, card, profile)
+        shutil.rmtree(base, ignore_errors=True)
+        wire, _ = served("served-4+2-wire", served_wire, base / "wire", g,
+                         card, profile, cprofile=profile)
     finally:
         shutil.rmtree(base, ignore_errors=True)
     phase_native_vs_card(card)
@@ -1207,7 +1462,8 @@ def main() -> int:
                                        "served-4+2-systematic": syst[name],
                                        "served-8+4": wide[name],
                                        "served-4+2-heal": healed[name],
-                                       "served-4+2-ladder": ladder[name]}
+                                       "served-4+2-ladder": ladder[name],
+                                       "served-4+2-wire": wire[name]}
         if name == "mxu_apply":
             row["product_ms"] = t["product_ms"]
             row["product_w"] = t["product_w"]

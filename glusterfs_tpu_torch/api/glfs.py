@@ -54,16 +54,41 @@ def _split(path: str) -> tuple[str, str]:
 
 
 async def _drain_graph(graph: Graph, timeout: float = 10.0) -> None:
-    """Wait until the graph's transports have no in-flight RPCs.  This
-    package has no protocol/client layer yet, so every graph is local
-    and has nothing in flight."""
+    """Wait until the graph's transports have no in-flight RPCs for a
+    few consecutive ticks — multi-RPC fops mid-flight get scheduler
+    turns to issue their next call before the graph is retired."""
+    from ..protocol.client import ClientLayer
+
+    clients = [l for l in graph.by_name.values()
+               if isinstance(l, ClientLayer)]
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + timeout
+    streak = 0
+    while loop.time() < deadline:
+        if any(l._pending for l in clients):
+            streak = 0
+        else:
+            streak += 1
+            if streak >= 3:
+                return
+        await asyncio.sleep(0.05)
 
 
 async def wait_connected(graph: Graph, timeout: float = 15.0) -> bool:
-    """Whether every protocol/client layer in the graph finished its
-    handshake: vacuously true for the local graphs this package builds
-    (it has no protocol/client layer yet)."""
-    return True
+    """Poll until every protocol/client layer in the graph has finished
+    its handshake (the reference blocks the mount until CHILD_UP reaches
+    the top).  Returns whether all connected within the deadline."""
+    from ..protocol.client import ClientLayer
+
+    prot = [l for l in graph.by_name.values()
+            if isinstance(l, ClientLayer)]
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + timeout
+    while loop.time() < deadline:
+        if all(p.connected for p in prot):
+            return True
+        await asyncio.sleep(0.05)
+    return all(p.connected for p in prot)
 
 
 class Handle:
@@ -421,9 +446,11 @@ class Client:
 
     def _peers_lease_capable(self) -> bool:
         """Every protocol client in the stack advertised lease support
-        at SETVOLUME (vacuously true for a wire-free local stack, the
-        only kind this package builds)."""
-        return True
+        at SETVOLUME (vacuously true for a wire-free local stack)."""
+        from ..protocol.client import ClientLayer
+
+        return all(l._peer_leases for l in walk(self.graph.top)
+                   if isinstance(l, ClientLayer))
 
     async def lease_acquire(self, path: str, ltype: str = "rd") -> bool:
         """Take (or keep) a lease on *path*.  True means the caches may

@@ -268,8 +268,13 @@ def lookup_type(type_name: str) -> type["Layer"]:
         if mod is not None:
             try:
                 importlib.import_module(mod)
-            except ImportError:
-                pass
+            except ModuleNotFoundError as e:
+                # only "no such module" (the type's module or one of its
+                # packages) means an unknown type; a module that exists
+                # and fails on an import of its own propagates
+                if e.name is None or not (mod == e.name or
+                                          mod.startswith(e.name + ".")):
+                    raise
     try:
         return _REGISTRY[type_name]
     except KeyError:

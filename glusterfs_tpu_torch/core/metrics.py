@@ -230,7 +230,8 @@ REGISTRY = MetricsRegistry()
 # acceptance contract is "the families are present", not "present iff
 # the right import happened first".  Scraping is a cold path; these
 # imports are cheap (numpy is already resident in any serving process).
-_DEFAULT_SOURCES = ("glusterfs_tpu_torch.ops.gf256",
+_DEFAULT_SOURCES = ("glusterfs_tpu_torch.rpc.wire",
+                    "glusterfs_tpu_torch.ops.gf256",
                     "glusterfs_tpu_torch.ops.codec")
 _ensured = False
 

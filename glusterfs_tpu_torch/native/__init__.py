@@ -12,6 +12,9 @@ There is no fallback: a host without ``avx2``, a missing compiler, a
 failed build or a failed load raises :class:`RuntimeError` carrying the
 reason (the compiler's stderr for a failed build), and every later call
 raises the same error.  :func:`available` only asks.
+
+The wire codec's C form (``src/wirec.c``) is built here too, by
+:func:`wirec_module`, with ``gcc`` and the same rule.
 """
 
 from __future__ import annotations
@@ -121,6 +124,70 @@ def available() -> bool:
         return True
     except RuntimeError:
         return False
+
+
+WIREC_SOURCE = Path(__file__).resolve().parent / "src" / "wirec.c"
+WIREC_FLAGS = ("-O2", "-fPIC", "-shared")
+
+_wirec = None
+_wirec_error: str | None = None
+
+
+def wirec_module():
+    """The wire codec's C form (``src/wirec.c``, a CPython extension),
+    compiled with ``gcc`` at first use into ``_build/`` as
+    ``_wirec_<hash>.so`` (the hash covers the source, the flags and the
+    interpreter's extension suffix) and loaded once per process.
+
+    A missing compiler, a failed build or a failed load raises
+    :class:`RuntimeError` (gcc's stderr for a failed build), and every
+    later call raises the same error: ``rpc/wire.py`` has no silent
+    fallback to its Python codec."""
+    global _wirec, _wirec_error
+    with _lock:
+        if _wirec is not None:
+            return _wirec
+        if _wirec_error is not None:
+            raise RuntimeError(_wirec_error)
+        try:
+            _wirec = _load_wirec()
+        except RuntimeError as e:
+            _wirec_error = str(e)
+            raise
+        return _wirec
+
+
+def _load_wirec():
+    import importlib.machinery
+    import importlib.util
+    import sysconfig
+
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    key = hashlib.sha256(" ".join(WIREC_FLAGS + (suffix,)).encode())
+    key.update(WIREC_SOURCE.read_bytes())
+    out = BUILD_DIR / f"_wirec_{key.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = ["gcc", *WIREC_FLAGS, "-I", sysconfig.get_paths()["include"],
+               str(WIREC_SOURCE), "-o", str(tmp)]
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"wire codec: cannot run gcc: {e}") from e
+        if res.returncode:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"wire codec: gcc failed ({res.returncode}):"
+                               f"\n{res.stderr}")
+        os.replace(tmp, out)
+    try:
+        loader = importlib.machinery.ExtensionFileLoader("_wirec", str(out))
+        spec = importlib.util.spec_from_loader("_wirec", loader)
+        mod = importlib.util.module_from_spec(spec)
+        loader.exec_module(mod)
+    except (ImportError, OSError) as e:
+        raise RuntimeError(f"wire codec: cannot load {out}: {e}") from e
+    return mod
 
 
 def _u8p(a: np.ndarray):

@@ -25,6 +25,11 @@ from glusterfs_tpu_torch.ops.codec import Codec
 ec = lookup_type("cluster/disperse")
 dht = lookup_type("cluster/distribute")
 posix = lookup_type("storage/posix")
+# the default brick stack and the wire client resolve inside the port
+stack = {t: lookup_type(t).__module__ for t in (
+    "storage/posix", "features/locks", "features/index", "features/upcall",
+    "performance/io-threads", "features/barrier", "debug/io-stats",
+    "protocol/server", "protocol/client")}
 codec = {}
 for backend in ("auto", "cuda-mma"):
     try:
@@ -50,7 +55,7 @@ print(json.dumps({"modules": mods, "leaked": leaked, "codec": codec,
                   "routed": routed,
                   "ec": ec.__module__ + "." + ec.__name__,
                   "dht": dht.__module__ + "." + dht.__name__,
-                  "posix": posix.__module__}))
+                  "posix": posix.__module__, "stack": stack}))
 """
 
 
@@ -66,6 +71,23 @@ def test_port_imports_no_jax_and_never_runs_on_cpu_implicitly():
     assert "glusterfs_tpu_torch.ops.gf256_cuda" in res["modules"]
     assert "glusterfs_tpu_torch.cluster.dht" in res["modules"]
     assert "glusterfs_tpu_torch.native" in res["modules"]
+    for mod in ("protocol.client", "protocol.server", "rpc.wire",
+                "rpc.shm", "rpc.event_pool", "rpc.socktune", "rpc.tls",
+                "rpc.compound", "features.locks", "features.index",
+                "features.upcall", "features.barrier",
+                "performance.io_threads", "debug.io_stats", "core.flight",
+                "daemon"):
+        assert "glusterfs_tpu_torch." + mod in res["modules"], mod
+    assert res["stack"] == {
+        "storage/posix": "glusterfs_tpu_torch.storage.posix",
+        "features/locks": "glusterfs_tpu_torch.features.locks",
+        "features/index": "glusterfs_tpu_torch.features.index",
+        "features/upcall": "glusterfs_tpu_torch.features.upcall",
+        "performance/io-threads": "glusterfs_tpu_torch.performance.io_threads",
+        "features/barrier": "glusterfs_tpu_torch.features.barrier",
+        "debug/io-stats": "glusterfs_tpu_torch.debug.io_stats",
+        "protocol/server": "glusterfs_tpu_torch.protocol.server",
+        "protocol/client": "glusterfs_tpu_torch.protocol.client"}
     assert res["routed"] == {"cpu_launches": 1, "launches": 0,
                              "small": "native", "shape": [6, 512]}
     assert res["leaked"] == []
